@@ -1,0 +1,21 @@
+"""sequence_aligner_tpu_torch — the overlap engine in PyTorch and CUDA.
+
+A port of ``sequence_aligner_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
+H100.  The JAX package stays the reference; this package imports nothing of
+it and keeps its own copies of the host-side layers it needs.
+
+Layer map (the JAX package's layout, so each counterpart is easy to find):
+
+  core/      settings and result records (host)
+  io/        FASTA reader and OVL writer (host)
+  ops/       encode (host), k-mer scan, pair generation, the dovetail aligner
+             with its two CUDA kernels and their plain PyTorch versions
+  models/    the Overlapper engine (calc-overlaps)
+  pipeline/  simulated read sets
+  csrc/      CUDA sources, built with nvcc at first use (_build.py)
+  cli.py     ``python -m sequence_aligner_tpu_torch.cli``
+"""
+
+__version__ = "0.1.0"
+
+from sequence_aligner_tpu_torch.core.settings import AlignSettings  # noqa: F401

@@ -1,0 +1,336 @@
+"""The end-to-end overlap engine (port of ``sequence_aligner_tpu/models``).
+
+The reference's production call stack (src/Project4.scala:56-59: k-mer table
+-> candidate dispatch -> block alignment -> OVL emission) as tensor stages on
+one device:
+
+  encode (host) -> kmer_scan -> hash sort + exact capacity plan ->
+  candidate_pairs_stream -> per band width: phase 1 on every pair (most
+  candidates dud there and stop) -> dove-length histogram and tiers ->
+  phase 2 on the pairs that can still be valid, one tier at a time, each
+  launch looping at most the tier's top dove length in rows -> validity ->
+  canonical (lead, trail) order.
+
+The JAX engine also has a monolithic both-phase path it picks for small
+inputs on the TPU; both give the same records, so the port keeps only the
+split path.  The pair table, the per-pair dove lengths and the alignment
+results stay on the device until the valid records are fetched once.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import time
+
+import numpy as np
+import torch
+
+from sequence_aligner_tpu_torch.core.records import OverlapRecord, Sequence
+from sequence_aligner_tpu_torch.core.settings import AlignSettings
+from sequence_aligner_tpu_torch.device import resolve_device
+from sequence_aligner_tpu_torch.io.fasta import read_fasta
+from sequence_aligner_tpu_torch.ops.align_fused import (
+    pack_reads_le, phase1, phase2, phase2_results,
+)
+from sequence_aligner_tpu_torch.ops.encode import encode_reads
+from sequence_aligner_tpu_torch.ops.kmer import kmer_scan
+from sequence_aligner_tpu_torch.ops.pairgen import (
+    MAX_READ_ID, candidate_pairs_stream, plan_totals, sort_occurrences,
+)
+
+# Per-class raw-stream ceiling for one device (the JAX engine's bound; its
+# int64 keys alone would be 16 GB here).
+_MAX_STREAM = (2**31 - 1) * 8 // 9
+
+
+def _pow2_at_least(n: int, floor: int = 1024) -> int:
+    c = floor
+    while c < n:
+        c *= 2
+    return c
+
+
+def _cap_at_least(n: int, floor: int = 1024) -> int:
+    """Capacity tier: next multiple of pow2/8 above n (<= 12.5% padding)."""
+    p = _pow2_at_least(n, floor)
+    step = p // 8
+    return ((n + step - 1) // step) * step
+
+
+@dataclasses.dataclass
+class OverlapStats:
+    n_reads: int = 0
+    n_kmers: int = 0
+    n_candidate_pairs: int = 0
+    n_alignments: int = 0
+    n_valid: int = 0
+    # pairs that reach phase 2, the DP cells the launches loop over
+    # (dp_cells) and the two-full-band volume (dp_cells_raw) — the JAX
+    # engine's definitions
+    n_phase2_pairs: int = 0
+    dp_cells: int = 0
+    dp_cells_raw: int = 0
+
+
+def _dove_tiers(la_max: int, width: int, min_overlap: int, min_identity: float):
+    """Static (lo, hi] dove-length buckets (copied from the JAX engine).
+
+    Pairs below the first bucket are provably invalid and skipped: every
+    backtrack step consumes a column, steps = du + dk + #Y with
+    du <= dove_len, dk <= w, and gaps are errors, so
+    steps * min_identity <= dove_len + w; validity needs
+    steps >= min_overlap, hence dove_len >= min_overlap*min_identity - w."""
+    lo0 = max(-1, int(math.floor(min_overlap * min_identity - width)) - 1)
+    if la_max <= 48:
+        return ((lo0, la_max),)
+    t1 = max(width + 4, la_max // 3, lo0 + 1)
+    t2 = max(2 * la_max // 3, t1 + 1)
+    if t2 >= la_max:
+        return ((lo0, t1), (t1, la_max))
+    return ((lo0, t1), (t1, t2), (t2, la_max))
+
+
+def _plan_tiers(counts, lo0: int, la_max: int, *, batch: int = 1 << 20,
+                max_tiers: int = 5, over_rows: int = 31):
+    """Work-optimal contiguous partition of dove lengths (lo0, la_max]
+    into <= max_tiers (lo, hi] tiers (copied from the JAX engine): a
+    tier's cost is its padded pair count times (hi + 1 + over_rows), tier
+    bounds on multiples of 8.  Any partition gives the same records."""
+
+    def seg_n(a: int, b: int) -> int:  # pairs with dlen in (a, b]
+        return int(counts[a + 2 : b + 2].sum())
+
+    def padded(n: int) -> int:
+        b = _pow2_at_least(min(batch, _pow2_at_least(n, 1024)), 128)
+        return ((n + b - 1) // b) * b
+
+    def cost(n: int, hi: int) -> int:
+        return padded(n) * (hi + 1 + over_rows) if n else 0
+
+    edges = [e for e in range(((lo0 // 8) + 1) * 8, la_max, 8) if e > lo0]
+    memo = {}
+
+    def solve(lo: int, k: int):
+        n_all = seg_n(lo, la_max)
+        if n_all == 0:
+            return 0, []
+        base = (cost(n_all, la_max), [(lo, la_max)])
+        if k == 1:
+            return base
+        key = (lo, k)
+        if key in memo:
+            return memo[key]
+        r = base
+        for e in edges:
+            if e <= lo:
+                continue
+            n1 = seg_n(lo, e)
+            c2, t2 = solve(e, k - 1)
+            c1 = cost(n1, e)
+            if c1 + c2 < r[0]:
+                r = (c1 + c2, ([(lo, e)] if n1 else []) + t2)
+        memo[key] = r
+        return r
+
+    _, tiers = solve(lo0, max_tiers)
+    return tuple(tiers) if tiers else ((lo0, la_max),)
+
+
+class Overlapper:
+    """Overlap engine on one device (``"cuda"`` unless the caller asks for
+    ``"cpu"``, where the kernels' plain versions run)."""
+
+    def __init__(self, settings: AlignSettings, *, batch_size: int = 1 << 20,
+                 device: str | torch.device = "cuda"):
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        self.s = settings
+        self.batch_size = batch_size
+        self.device = resolve_device(device)
+        self.stats = OverlapStats()
+        self.stage_s: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Host clock around a stage, ended by a device synchronise."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stage_s[name] = self.stage_s.get(name, 0.0) + time.perf_counter() - t0
+
+    # ---- stage 1+2: k-mer occurrences ----
+    def _occurrences(self, bases_d: torch.Tensor, lengths_d: torch.Tensor):
+        n = bases_d.shape[0]
+        ids = torch.arange(1, n + 1, dtype=torch.int32, device=self.device)
+        return kmer_scan(bases_d, lengths_d, ids, self.s.kmer_size)
+
+    # ---- stage 3: candidate pairs ----
+    def _geom(self):
+        s = self.s
+        return dict(head_edge=s.kmer_head_edge, tail_edge=s.kmer_tail_edge,
+                    mid_lead=s.kmer_mid_lead_edge, mid_tail=s.kmer_mid_tail_edge)
+
+    def _candidates_dev(self, occ):
+        """The pair stream with capacities planned from the exact raw
+        totals.  Returns (output dict, n_out)."""
+        s = self.s
+        occ_s = sort_occurrences(occ)
+        with self._stage("pairgen.plan"):
+            h_tot, t_tot = plan_totals(occ_s, **self._geom())
+        if max(h_tot, t_tot) > _MAX_STREAM:
+            raise RuntimeError(
+                f"raw candidate stream too large for one device (head={h_tot}, "
+                f"tail={t_tot}, max={_MAX_STREAM}): lower --max-collisions to "
+                f"cap repeat-rich k-mers"
+            )
+        cap_head = _cap_at_least(h_tot, 1 << 14)
+        cap_tail = _cap_at_least(t_tot, 1 << 14)
+        # every kept pair carries >= min_collisions raw events
+        out_bound = (h_tot + t_tot) // max(s.min_collisions, 1)
+        cap_out = _cap_at_least(min(out_bound, h_tot + t_tot), 1 << 14)
+        out = candidate_pairs_stream(
+            occ_s, **self._geom(),
+            min_collisions=s.min_collisions, max_collisions=s.max_collisions,
+            cap_head=cap_head, cap_tail=cap_tail, cap_out=cap_out,
+        )
+        if out["overflow"]:  # the exact plan rules this out
+            raise RuntimeError(
+                f"pair stream overflowed its planned capacity: h={h_tot}/{cap_head} "
+                f"t={t_tot}/{cap_tail} out={out['n_out']}/{cap_out}"
+            )
+        return out, out["n_out"]
+
+    # ---- stage 4: split-phase alignment per band width ----
+    def _align_device(self, bases_d: torch.Tensor, lengths: np.ndarray,
+                      lead_d: torch.Tensor, trail_d: torch.Tensor, n_pairs: int):
+        """(lead, trail, ahg, bhg) host int32 arrays of the VALID overlaps
+        among the first n_pairs candidates."""
+        s = self.s
+        dev = self.device
+        empty = tuple(np.zeros(0, np.int32) for _ in range(4))
+        if n_pairs == 0:
+            return empty
+        packed = pack_reads_le(bases_d)
+        la_max = bases_d.shape[1]
+        lengths_d = torch.from_numpy(lengths).to(dev)
+        wtab_host = np.asarray([s.band_width(l) for l in range(la_max + 1)], np.int32)
+        widths = sorted(set(int(w) for w in wtab_host[lengths[lengths > 0]]))
+        cm = s.cm_tuple()
+        real = lengths[lengths > 0]
+        ulen = int(real[0]) if real.size and bool((real == real[0]).all()) else 0
+        lead = lead_d[:n_pairs].long()
+        trail = trail_d[:n_pairs].long()
+        pair_w = torch.from_numpy(wtab_host).to(dev)[lengths_d[lead - 1].long()]
+        bs = self.batch_size
+        p1kw = dict(gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm, ulen=ulen)
+        vkw = dict(min_identity=s.min_identity, min_overlap=s.min_overlap,
+                   max_ignore=s.max_ignore)
+        found = []
+
+        def operands(pos, n_words_b=None):
+            """Word-major packed A and B and their lengths for pair positions."""
+            a_idx, b_idx = lead[pos] - 1, trail[pos] - 1
+            bw = packed[b_idx] if n_words_b is None else packed[b_idx, :n_words_b]
+            return (packed[a_idx].t().contiguous(), bw.t().contiguous(),
+                    lengths_d[a_idx], lengths_d[b_idx])
+
+        for w in widths:
+            sel = (torch.arange(n_pairs, device=dev) if len(widths) == 1
+                   else torch.nonzero(pair_w == w)[:, 0])
+            cnt = int(sel.numel())
+            if cnt == 0:
+                continue
+            # pass A: phase 1 on every pair; dove length, -1 for duds
+            dlen = torch.empty(cnt, dtype=torch.int32, device=dev)
+            for lo in range(0, cnt, bs):
+                aw, bw, a_len, b_len = operands(sel[lo : lo + bs], (w + 15) // 16)
+                best1, bi, bj, fi_c, fj_c = phase1(aw, bw, a_len, la_max=la_max, w=w, **p1kw)
+                act1 = (best1 > 0) & (b_len >= w)  # the glue's dud rule
+                fi = torch.where(act1, fi_c, bi)
+                fj = torch.where(act1, fj_c, bj)
+                dlen[lo : lo + bs] = torch.where(act1 & (fj == 0), a_len - fi, -1)
+            self.stats.dp_cells += cnt * (la_max + 1) * (w + 1)
+            self.stats.dp_cells_raw += 2 * cnt * (la_max + 1) * (w + 1)
+
+            # pass B: phase 2 per dove-length tier; short doves are provably
+            # invalid and skipped
+            tiers = _dove_tiers(la_max, w, s.min_overlap, float(s.min_identity))
+            lo0 = tiers[0][0]
+            hist = torch.bincount(dlen.clamp(-1, la_max).long() + 1,
+                                  minlength=la_max + 2).cpu().numpy()
+            if len(tiers) > 1:
+                tiers = _plan_tiers(hist, lo0, la_max, batch=bs)
+            # one stable sort groups every tier into a contiguous slice
+            key = torch.where(dlen > lo0, dlen, 1 << 30)
+            order = torch.sort(key, stable=True).indices
+            toff = 0
+            for tlo, thi in tiers:
+                tcnt = int(hist[tlo + 2 : thi + 2].sum())
+                self.stats.n_phase2_pairs += tcnt
+                self.stats.dp_cells += tcnt * (thi + 1) * (w + 1)
+                for lo in range(toff, toff + tcnt, bs):
+                    opos = order[lo : min(lo + bs, toff + tcnt)]
+                    pos = sel[opos]
+                    aw, bw, a_len, b_len = operands(pos)
+                    dl = dlen[opos]
+                    ds = (a_len - dl).contiguous()
+                    p2 = phase2(aw, bw, ds, dl.contiguous(), b_len, la_max=thi, w=w,
+                                zero_row=w // 2, **p1kw)
+                    res = phase2_results(p2, ds, a_len, b_len, width=w, **vkw)
+                    ahg, bhg, valid = res["ahg"], res["bhg"], res["valid"]
+                    found.append(torch.stack(
+                        [lead[pos].int(), trail[pos].int(), ahg, bhg], dim=1)[valid])
+                toff += tcnt
+        self.stats.n_alignments = n_pairs
+        rows = torch.cat(found).cpu().numpy() if found else np.zeros((0, 4), np.int32)
+        self.stats.n_valid = int(rows.shape[0])
+        return tuple(np.ascontiguousarray(rows[:, i]) for i in range(4))
+
+    # ---- full pipeline ----
+    def run(self, path_or_seqs: str | list[Sequence]) -> list[OverlapRecord]:
+        """Full pipeline to OverlapRecord objects."""
+        return [OverlapRecord(*map(int, r)) for r in zip(*self.run_arrays(path_or_seqs))]
+
+    def run_arrays(self, path_or_seqs: str | list[Sequence]):
+        """Full pipeline to canonical (lead, trail, ahg, bhg) int32 numpy
+        arrays sorted by (lead, trail)."""
+        self.stats = OverlapStats()
+        self.stage_s = {}
+        with self._stage("encode"):
+            seqs = read_fasta(path_or_seqs) if isinstance(path_or_seqs, str) else path_or_seqs
+            if len(seqs) > MAX_READ_ID:
+                raise ValueError(
+                    f"{len(seqs)} reads: this port handles at most {MAX_READ_ID} "
+                    "(16-bit read ids); the general-id pair path is not ported yet"
+                )
+            bases, lengths = encode_reads(seqs)
+            bases_d = torch.from_numpy(bases).to(self.device)
+        return self._run_encoded(bases_d, lengths, len(seqs))
+
+    def _run_encoded(self, bases_d: torch.Tensor, lengths: np.ndarray, n_input: int):
+        self.stats.n_reads = n_input
+        with self._stage("kmer"):
+            occ = self._occurrences(bases_d, torch.from_numpy(lengths).to(self.device))
+            self.stats.n_kmers = int(occ["valid"].sum())
+        with self._stage("pairgen"):
+            if occ["hash"].numel() == 0:
+                out, n_pairs = None, 0
+            else:
+                out, n_pairs = self._candidates_dev(occ)
+            self.stats.n_candidate_pairs = n_pairs
+        del occ
+        with self._stage("align"):
+            if n_pairs:
+                lead, trail, ahg, bhg = self._align_device(
+                    bases_d, lengths, out["lead"], out["trail"], n_pairs)
+            else:
+                lead = trail = ahg = bhg = np.zeros(0, np.int32)
+        with self._stage("emit"):
+            order = np.lexsort((trail, lead))
+            arrs = tuple(np.ascontiguousarray(c[order]) for c in (lead, trail, ahg, bhg))
+        return arrs

@@ -1,0 +1,69 @@
+"""Simulated read sets (copied from ``sequence_aligner_tpu/pipeline``).
+
+``simulated_reads`` draws a random genome sized for the requested coverage
+and shreds it into an even tiling of reads; with the same seed it gives the
+same reads as the JAX package (both draw from ``np.random.RandomState``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from sequence_aligner_tpu_torch.core.records import Sequence
+
+_BASES = "ACTG"
+
+
+def shred_genome(
+    genome: str,
+    n_reads: int,
+    read_len: int,
+    *,
+    error_rate: float = 0.0,
+    seed: int = 0,
+) -> list[Sequence]:
+    """Even tiling of ``genome`` into n_reads reads of read_len bp, with
+    optional per-base substitution errors."""
+    g = len(genome)
+    if g < read_len:
+        raise ValueError("genome shorter than read length")
+    starts = np.floor(
+        np.arange(n_reads, dtype=np.float64) * (g - read_len) / max(n_reads - 1, 1)
+    ).astype(np.int64)
+    rng = np.random.RandomState(seed)
+    seqs = []
+    for i, st in enumerate(starts):
+        body = genome[st : st + read_len]
+        if error_rate > 0:
+            arr = list(body)
+            n_err = rng.binomial(read_len, error_rate)
+            for p in rng.randint(0, read_len, n_err):
+                arr[p] = _BASES[rng.randint(0, 4)]
+            body = "".join(arr)
+        seqs.append(Sequence(i + 1, body))
+    return seqs
+
+
+def simulated_reads(
+    n_reads: int,
+    read_len: int = 100,
+    *,
+    coverage: float = 8.0,
+    error_rate: float = 0.0,
+    seed: int = 0,
+) -> list[Sequence]:
+    """A random (repeat-free) genome of n_reads * read_len / coverage bp,
+    shredded into n_reads reads."""
+    rng = np.random.RandomState(seed)
+    genome_len = max(int(n_reads * read_len / coverage), read_len + 1)
+    genome = "".join(_BASES[i] for i in rng.randint(0, 4, genome_len))
+    return shred_genome(
+        genome, n_reads, read_len, error_rate=error_rate, seed=seed + 1
+    )
+
+
+def write_seq(seqs: list[Sequence], path: str) -> None:
+    """Write reads as a .seq/FASTA file."""
+    with open(path, "w") as f:
+        for q in seqs:
+            f.write(f">r{q.id}\n{q.seq}\n")
