@@ -27,7 +27,26 @@ nvcc, then, each phase fatal on failure:
      (the CPU side is the path the CPU tests hold against the JAX package);
   5. writes a 2,048-read FASTA to a temporary directory, runs
      ``python -m sequence_aligner_tpu_torch.cli`` on it and checks that the
-     OVL file equals phase 4's records.
+     OVL file equals phase 4's records;
+  6. the large-input path at full size: 1,000,000 simulated 100 bp reads at
+     coverage 8 (k = 16, amos_parity settings) written as FASTA to a
+     temporary directory, run by ``Overlapper.run_arrays`` and by
+     ``run_stream_arrays``, each with the launch counters set to 0 just
+     before and read just after (both kernels must launch); the two record
+     sets must be equal and hold the JAX engine's record and candidate
+     counts.  Each kernel is held against its plain version on the first
+     65,536 pairs of its largest launch in the ``run_arrays`` run (w = 16,
+     the 32-column instances), then timed there.  Prints reads, candidate
+     pairs, records, the raw stream totals, stage times, reads/s and peak
+     device memory;
+  7. the prescreen on the card: phase 2's reads through the screened and
+     the unscreened engine, then each on 2,048 reads with planted repeats
+     on the card and on the CPU (equal arrays; the screen must drop
+     candidates there);
+  8. the probes (csrc/probes.cu): every pack-probe and dtype-probe variant
+     against its plain version on the card (equal, tolerance 0), then timed
+     at the TPU probes' P = 1024 and at P = 2^20, with SWAR / native and
+     int32 / int16.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -36,6 +55,7 @@ without a card or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -48,14 +68,17 @@ from pathlib import Path
 BUDGET_S = 1100  # a hang ends with a traceback and a non-zero exit
 N_READS, READ_LEN, COVERAGE = 32000, 100, 20.0
 N_CHECK = 65536
+# the large-input path: BASELINE config 4's dataset on one card (the JAX
+# engine's ARTIFACT_1M_r5.json records 3,999,987 records and 4,104,565
+# candidate pairs for it)
+N_LARGE, K_LARGE, COVERAGE_LARGE = 1_000_000, 16, 8.0
+RECORDS_JAX_1M, CANDIDATES_JAX_1M = 3_999_987, 4_104_565
 # int32 operations per band cell, counted from csrc/dovetail.cu along one
 # cell's usual path (in band, M branch, no new best), with Hopper's fused
 # 3-input max and add-max (VIMNMX3, VIADDMNMX) as one operation each and
 # register moves not counted (python -m sequence_aligner_tpu_torch.sass_mix
 # shows the compiled instruction mix)
 OPS_PER_CELL = {"phase1": 28, "phase2": 34}
-INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 units
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 ROOT = Path(__file__).resolve().parent
 
 
@@ -95,20 +118,261 @@ def nvidia_smi(query: str) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int, warm: int = 1) -> float:
+def launch_counts() -> dict:
+    """Every kernel's launch count."""
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+    from sequence_aligner_tpu_torch.probes import dtype_probe as dp
+    from sequence_aligner_tpu_torch.probes import pack_probe as pp
+
+    counts = {"phase1": af.phase1_launches, "phase2": af.phase2_launches}
+    counts.update({f"pack_probe_{v}": n for v, n in pp.launches.items()})
+    counts.update({f"dtype_probe_{v}": n for v, n in dp.launches.items()})
+    return counts
+
+
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+    from sequence_aligner_tpu_torch.probes import dtype_probe as dp
+    from sequence_aligner_tpu_torch.probes import pack_probe as pp
+
+    af.phase1_launches = af.phase2_launches = 0
+    for counts in (pp.launches, dp.launches):
+        for v in counts:
+            counts[v] = 0
+
+
+def check_records(arrs, n_reads: int, s) -> None:
+    """Canonical, valid OVL records of int32 arrays; raises otherwise."""
+    import numpy as np
+
+    lead, trail, ahg, bhg = arrs
+    if not (len(lead) > 0 and all(len(a) == len(lead) and a.dtype == np.int32
+                                  for a in arrs)):
+        raise AssertionError("records have the wrong shape")
+    key = lead.astype(np.int64) << 32 | trail
+    if not ((np.diff(key) > 0).all() and lead.min() >= 1 and trail.max() <= n_reads
+            and (lead != trail).all() and np.abs(ahg).max() < s.max_ignore
+            and np.abs(bhg).max() < s.max_ignore):
+        raise AssertionError("records are not canonical valid OVL records")
+
+
+@contextlib.contextmanager
+def largest_launches():
+    """Route the engine's ``phase1`` / ``phase2`` calls through a wrapper
+    that keeps the arguments of each phase's largest launch; yields
+    {name: (args, kwargs, pairs)}.  The wrapper adds no launch."""
+    from sequence_aligner_tpu_torch.models import overlapper as ovmod
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+
+    captured = {}
+
+    def capture(name, real):
+        def wrapped(*args, **kw):
+            p = kw.get("a_len", args[2] if name == "phase1" else args[4]).shape[0]
+            if p > captured.get(name, ((), {}, -1))[2]:
+                captured[name] = (args, dict(kw), p)
+            return real(*args, **kw)
+        return wrapped
+
+    ovmod.phase1 = capture("phase1", af.phase1)
+    ovmod.phase2 = capture("phase2", af.phase2)
+    try:
+        yield captured
+    finally:
+        ovmod.phase1, ovmod.phase2 = af.phase1, af.phase2
+
+
+def check_real_pairs(name, args, kw, p, what) -> int:
+    """The kernel against its plain version on the first ``N_CHECK`` pairs of
+    a captured launch, with the launch's own arguments; returns the largest
+    |difference| (0), raises otherwise."""
     import torch
 
-    for _ in range(warm):
-        fn()
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+
+    n = min(N_CHECK, p)
+    sub = tuple(t[..., :n].contiguous() for t in args)
+    got = getattr(af, name)(*sub, **kw)
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    want = getattr(af, name + "_plain")(*sub, **kw)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"{name} differs from its plain version on {what}: "
+                             f"max |diff| {err}")
+    log(f"  equal: {name} on the first {n} pairs of {what} (w={kw['w']}, rows "
+        f"{kw['la_max']}, ulen={kw.get('ulen', 0)})")
+    return err
+
+
+def kernel_entry(name, args, kw, p, *, launches, max_err, sms, sm_mhz, tag="") -> dict:
+    """Times a captured launch with CUDA events beside its plain version and
+    its bound; returns its entry of the kernels line."""
+    from sequence_aligner_tpu_torch.measure import bound_ms, event_ms
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+
+    kern = getattr(af, name)
+    plain = getattr(af, name + "_plain")
+    ms = event_ms(lambda: kern(*args, **kw), reps=10, warm=2)
+    plain_ms = event_ms(lambda: plain(*args, **kw), reps=1, warm=1)
+    w = kw["w"]
+    if name == "phase1":
+        aw, bw, a_len = args
+        rows = a_len.clamp(max=kw["la_max"]).long().sum().item()
+        cells = rows * w  # band columns 1..w
+        nbytes = 4 * (aw.numel() + bw.numel() + a_len.numel() + 5 * p)
+    else:
+        aw, bw, ds, dl, bl = args
+        rows = dl.clamp(min=0, max=kw["la_max"]).long().sum().item()
+        cells = rows * (w + 1)  # band columns 0..w
+        nbytes = 4 * (aw.numel() + bw.numel() + 3 * p + 7 * p)
+    bound, by = bound_ms(cells * OPS_PER_CELL[name], nbytes, sms, sm_mhz)
+    log(f"  {name}{tag}: P={p} w={w} rows={kw['la_max']} cells={cells} "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
+        f"({by}; {OPS_PER_CELL[name]} int32 ops/cell, {nbytes} bytes), "
+        f"{cells / ms / 1e6:.2f} G cells/s")
+    return dict(
+        name=f"{name}_kernel{tag}", route="cuda",
+        source="sequence_aligner_tpu_torch/csrc/dovetail.cu",
+        replaces=("sequence_aligner_tpu/ops/align_fused.py:463" if name == "phase1"
+                  else "sequence_aligner_tpu/ops/align_fused.py:821"),
+        launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by,
+        library_ms=None,  # no single PyTorch call computes this DP
+    )
+
+
+def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> list[dict]:
+    """Phase 6: ``run_arrays`` and ``run_stream_arrays`` on the FASTA at
+    ``path``; both kernels must launch in each run, the records must be
+    equal and match the JAX engine's counts, and each kernel's largest
+    launch in the ``run_arrays`` run must equal its plain version.  Returns
+    the kernels' entries of the kernels line for this path."""
+    import numpy as np
+    import torch
+
+    from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+
+    dev = torch.device("cuda")
+    res = {}
+    for name in ("run_arrays", "run_stream_arrays"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ov = Overlapper(s, device=dev)
+        with largest_launches() as captured:
+            reset_counts()
+            t0 = time.perf_counter()
+            arrs = getattr(ov, name)(path)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        st = ov.stats
+        log(f"  {name}: reads {st.n_reads}  k-mers {st.n_kmers}  h_tot {st.h_tot}  "
+            f"t_tot {st.t_tot}  candidate pairs {st.n_candidate_pairs}  phase-2 pairs "
+            f"{st.n_phase2_pairs}  records {st.n_valid}  dp_cells {st.dp_cells}")
+        log(f"  {name}: stage times (s) "
+            + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
+        log(f"  {name}: wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; peak device "
+            f"memory {peak:.1f} MiB; launches {launches}")
+        if min(launches.get("phase1", 0), launches.get("phase2", 0)) < 1:
+            raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
+        check_records(arrs, n_reads, s)
+        if (len(arrs[0]), st.n_candidate_pairs) != (RECORDS_JAX_1M, CANDIDATES_JAX_1M):
+            raise AssertionError(
+                f"{name}: {len(arrs[0])} records and {st.n_candidate_pairs} candidate "
+                f"pairs; the JAX engine's ARTIFACT_1M_r5.json has {RECORDS_JAX_1M} and "
+                f"{CANDIDATES_JAX_1M}")
+        res[name] = dict(arrs=arrs, launches=launches, captured=captured)
+    a, b = res["run_arrays"]["arrs"], res["run_stream_arrays"]["arrs"]
+    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("run_stream_arrays and run_arrays give different records")
+    log(f"  equal: run_arrays and run_stream_arrays, {len(a[0])} records, as the JAX "
+        f"engine's ARTIFACT_1M_r5.json ({RECORDS_JAX_1M} records, {CANDIDATES_JAX_1M} "
+        f"candidate pairs)")
+    entries = []
+    for name in ("phase1", "phase2"):
+        args, kw, p = res["run_arrays"]["captured"][name]
+        err = check_real_pairs(name, args, kw, p, "the 1M run's largest launch")
+        entries.append(kernel_entry(name, args, kw, p, launches=res["run_arrays"]["launches"][name],
+                                    max_err=err, sms=sms, sm_mhz=sm_mhz, tag="_1m"))
+    return entries
+
+
+def prescreen_phase(dev, reads, s) -> None:
+    """Phase 7: ``reads`` through the unscreened and the screened engine on
+    the card; then 2,048 reads with planted repeats (amos_parity settings),
+    where the screen drops candidates, on the card and on the CPU, each
+    equal."""
+    import numpy as np
+
+    from sequence_aligner_tpu_torch.core.settings import AlignSettings
+    from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+    from sequence_aligner_tpu_torch.pipeline.datasets import planted_repeat_reads
+
+    for screen in (False, True):
+        ov = Overlapper(s, prescreen=screen, device=dev)
+        t0 = time.perf_counter()
+        arrs = ov.run_arrays(reads)
+        wall = time.perf_counter() - t0
+        if screen and ov._prescreen_w() is None:
+            raise AssertionError("the prescreen is not active on this input")
+        log(f"  prescreen={screen}: window {ov._prescreen_w()}, candidate pairs "
+            f"{ov.stats.n_candidate_pairs}, records {len(arrs[0])}, {wall:.3f} s, "
+            f"stages " + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
+        check_records(arrs, len(reads), s)
+    small = planted_repeat_reads(2048, READ_LEN, seed=7)
+    sp = AlignSettings.amos_parity()
+    n_cand = {}
+    for screen in (False, True):
+        ov = Overlapper(sp, prescreen=screen, device=dev)
+        got = ov.run_arrays(small)
+        want = Overlapper(sp, prescreen=screen, device="cpu").run_arrays(small)
+        if not (len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))):
+            raise AssertionError(f"prescreen={screen}: card and CPU engines differ")
+        n_cand[screen] = ov.stats.n_candidate_pairs
+        log(f"  equal: prescreen={screen} on {len(small)} planted-repeat reads, card and "
+            f"CPU, {n_cand[screen]} candidate pairs, {len(got[0])} records")
+    if not n_cand[True] < n_cand[False]:
+        raise AssertionError(f"the screen dropped no candidate on the card: {n_cand}")
+
+
+def probe_phase(launches: dict) -> list[dict]:
+    """Phase 8: every probe variant checked against its plain version and
+    timed; returns their entries of the kernels line (P = 2^20 rows)."""
+    from sequence_aligner_tpu_torch import probes
+    from sequence_aligner_tpu_torch.probes import dtype_probe as dp
+    from sequence_aligner_tpu_torch.probes import pack_probe as pp
+
+    replaces = {"native": "tools/pack_probe.py:59", "swar": "tools/pack_probe.py:80",
+                "vmax2": "tools/pack_probe.py:80"}
+    entries = []
+    for mod, prefix in ((pp, "pack_probe"), (dp, "dtype_probe")):
+        rows = mod.measure()
+        for r in rows:
+            lib = r["library_ms"]
+            log(f"  {prefix} {r['variant']:8s} P={r['P']:8d}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms"
+                + (f", amax {lib:.4f} ms" if lib is not None else "") + " (equal)")
+            if r["P"] == probes.SIZES[-1]:
+                entries.append(dict(
+                    name=f"{prefix}_{r['variant']}", route="cuda",
+                    source="sequence_aligner_tpu_torch/csrc/probes.cu",
+                    replaces=replaces.get(r["variant"], "tools/dtype_probe.py:33"),
+                    launches=launches[f"{prefix}_{r['variant']}"],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=lib))
+        for p in probes.SIZES:
+            t = {r["variant"]: r["ms"] for r in rows if r["P"] == p}
+            if mod is pp:
+                log(f"  P={p}: SWAR / native {t['swar'] / t['native']:.3f}x, "
+                    f"vmax2 / native {t['vmax2'] / t['native']:.3f}x (equal logical volume)")
+            else:
+                log(f"  P={p}: int32 / int16 {t['int32'] / t['int16']:.3f}x, "
+                    f"int32 / int16x2 {t['int32'] / t['int16x2']:.3f}x, "
+                    f"int32 / int8 {t['int32'] / t['int8']:.3f}x, "
+                    f"int32 / int8x4 {t['int32'] / t['int8x4']:.3f}x")
+    return entries
 
 
 def main() -> int:
@@ -125,7 +389,7 @@ def main() -> int:
 
     import numpy as np
 
-    from sequence_aligner_tpu_torch import _build
+    from sequence_aligner_tpu_torch import _build, probes
     from sequence_aligner_tpu_torch.core.records import Sequence
     from sequence_aligner_tpu_torch.core.settings import AlignSettings
     from sequence_aligner_tpu_torch.io.ovl import write_ovl_arrays
@@ -147,43 +411,32 @@ def main() -> int:
             f"{torch.cuda.get_device_name(0)}, {props.multi_processor_count} SMs, "
             f"max SM clock {sm_mhz:.0f} MHz")
         t0 = time.perf_counter()
-        logs = _build.build_all(["dovetail"])
+        logs = _build.build_all(["dovetail", "probes"])  # one nvcc each, in parallel
         log(f"nvcc build: {time.perf_counter() - t0:.1f} s")
-        for line in logs["dovetail"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"  ptxas: {line.strip()}")
+        for src, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"  ptxas ({src}): {line.strip()}")
         af._lib()  # load and bind now, so a binding fault fails here
+        probes.lib()
 
     # ---- 2. the main path at full size ----
-    captured = {}
-
-    def capture(name, real):
-        def wrapped(*args, **kw):
-            p = kw.get("a_len", args[2] if name == "phase1" else args[4]).shape[0]
-            if p > captured.get(name, ((), {}, -1))[2]:
-                captured[name] = (args, dict(kw), p)
-            return real(*args, **kw)
-        return wrapped
-
     with Stage("main path: Overlapper.run_arrays, 32,000 x 100 bp"):
         t0 = time.perf_counter()
         reads = simulated_reads(N_READS, READ_LEN, coverage=COVERAGE, error_rate=0.0, seed=0)
         log(f"simulated reads (host set-up): {time.perf_counter() - t0:.2f} s")
         warm = ovmod.Overlapper(s, device=dev)
         warm.run_arrays(reads[:2048])  # CUDA context, allocator and library warm-up
-        ovmod.phase1 = capture("phase1", af.phase1)
-        ovmod.phase2 = capture("phase2", af.phase2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        af.phase1_launches = 0
-        af.phase2_launches = 0
         ov = ovmod.Overlapper(s, device=dev)
-        t0 = time.perf_counter()
-        arrs = ov.run_arrays(reads)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"phase1": af.phase1_launches, "phase2": af.phase2_launches}
-        ovmod.phase1, ovmod.phase2 = af.phase1, af.phase2
+        with largest_launches() as captured:
+            reset_counts()
+            t0 = time.perf_counter()
+            arrs = ov.run_arrays(reads)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         st = ov.stats
         log(f"reads {st.n_reads}  k-mers {st.n_kmers}  candidate pairs "
@@ -192,17 +445,11 @@ def main() -> int:
         log("stage times (s): " + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
         log(f"run_arrays wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; "
             f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
-        if min(launches.values()) < 1:
+        if min(launches["phase1"], launches["phase2"]) < 1:
             return fail(f"a kernel of the main path never launched: {launches}")
-        lead, trail, ahg, bhg = arrs
-        if not (len(lead) > 0 and len(lead) == st.n_valid
-                and all(len(a) == len(lead) and a.dtype == np.int32 for a in arrs)):
+        if len(arrs[0]) != st.n_valid:
             return fail("main path output has the wrong shape")
-        key = lead.astype(np.int64) << 16 | trail
-        if not ((np.diff(key) > 0).all() and lead.min() >= 1 and trail.max() <= N_READS
-                and (lead != trail).all() and np.abs(ahg).max() < s.max_ignore
-                and np.abs(bhg).max() < s.max_ignore):
-            return fail("main path output is not canonical valid OVL records")
+        check_records(arrs, N_READS, s)
 
     # ---- 3. kernels against their plain versions; timing ----
     max_err = {"phase1": 0, "phase2": 0}
@@ -285,44 +532,11 @@ def main() -> int:
             aw, bw, la, lb, lmax = batch(mixed, pairs)
             check(aw, bw, la, lb, lmax, w, "mixed lengths 40..300 bp")
 
-    kernels = []
     with Stage("kernel timing at the main path's largest launches"):
         sms = props.multi_processor_count
-        peak_ops = sms * INT32_LANES_PER_SM * sm_mhz * 1e6
-        for name, (args, kw, p) in (("phase1", captured["phase1"]),
-                                    ("phase2", captured["phase2"])):
-            kern = getattr(af, name)
-            plain = getattr(af, name + "_plain")
-            ms = event_ms(lambda: kern(*args, **kw), reps=10, warm=2)
-            plain_ms = event_ms(lambda: plain(*args, **kw), reps=1, warm=1)
-            w = kw["w"]
-            if name == "phase1":
-                aw, bw, a_len = args
-                rows = a_len.clamp(max=kw["la_max"]).long().sum().item()
-                cells = rows * w  # band columns 1..w
-                nbytes = 4 * (aw.numel() + bw.numel() + a_len.numel() + 5 * p)
-            else:
-                aw, bw, ds, dl, bl = args
-                rows = dl.clamp(min=0, max=kw["la_max"]).long().sum().item()
-                cells = rows * (w + 1)  # band columns 0..w
-                nbytes = 4 * (aw.numel() + bw.numel() + 3 * p + 7 * p)
-            ops_ms = cells * OPS_PER_CELL[name] / peak_ops * 1e3
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            bound = max(ops_ms, bytes_ms)
-            log(f"  {name}: P={p} w={w} rows={kw['la_max']} cells={cells} "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
-                f"(ops {ops_ms:.4f} ms at {OPS_PER_CELL[name]} int32 ops/cell, "
-                f"bytes {bytes_ms:.5f} ms), {cells / ms / 1e6:.2f} G cells/s")
-            kernels.append(dict(
-                name=f"{name}_kernel", route="cuda",
-                source="sequence_aligner_tpu_torch/csrc/dovetail.cu",
-                replaces=("sequence_aligner_tpu/ops/align_fused.py:463" if name == "phase1"
-                          else "sequence_aligner_tpu/ops/align_fused.py:821"),
-                launches=launches[name], max_abs_err=max_err[name], ms=ms,
-                plain_ms=plain_ms, bound_ms=bound,
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                library_ms=None,  # no single PyTorch call computes this DP
-            ))
+        kernels = [kernel_entry(name, *captured[name], launches=launches[name],
+                                max_err=max_err[name], sms=sms, sm_mhz=sm_mhz)
+                   for name in ("phase1", "phase2")]
 
     # ---- 4. card against CPU ----
     with Stage("engine on the card against the CPU, 2,048 reads"):
@@ -353,6 +567,28 @@ def main() -> int:
             if Path(out).read_bytes() != Path(want).read_bytes():
                 return fail("CLI output differs from the engine's records")
             log(f"  CLI OVL equal ({Path(out).stat().st_size} bytes)")
+
+    # ---- 6. the large-input path at full size ----
+    with Stage("large-input path: 1,000,000 x 100 bp, k = 16, run_arrays and "
+               "run_stream_arrays"):
+        s16 = AlignSettings.amos_parity(kmer_size=K_LARGE)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, "reads_1m.fasta")
+            write_seq(simulated_reads(N_LARGE, READ_LEN, coverage=COVERAGE_LARGE, seed=0),
+                      path)
+            log(f"simulated reads written as FASTA (host set-up): "
+                f"{time.perf_counter() - t0:.2f} s")
+            kernels += large_input_phase(path, N_LARGE, s16, sms, sm_mhz)
+
+    # ---- 7. prescreen ----
+    with Stage("prescreen on the card, 32,000 reads; card against CPU, 2,048 "
+               "planted-repeat reads"):
+        prescreen_phase(dev, reads, s)
+
+    # ---- 8. probes ----
+    with Stage("probes: every variant against its plain version, then timed"):
+        kernels += probe_phase(launches)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,6 +28,8 @@ Usage: python -m sequence_aligner_tpu_torch.cli -i <input.seq> [-o out.ovl] [opt
   -gO|--gap-open N     (-200)  -gE|--gap-extend N         (-20)
   --max-ignore N       (90)    --amos-parity
   --batch-size N       (1048576)
+  --prescreen / --no-prescreen  diagonal-coherence candidate prescreen
+                       (empirically lossless, off by default)
   --device cuda|cpu    (cuda)
   -i|--input FILE   -o|--output FILE (stdout if absent)
 """
@@ -53,6 +55,7 @@ class Options:
         self.amos_parity = False
         self.batch_size = 1 << 20
         self.device = "cuda"
+        self.prescreen = False
 
     def settings(self) -> AlignSettings:
         cm = (simple_match_matrix(self.match, self.mismatch) if self.use_simple
@@ -118,6 +121,9 @@ def parse_args(argv: list[str]) -> Options:
         elif a == "--amos-parity":
             o.amos_parity = True
             i += 1
+        elif a in ("--prescreen", "--no-prescreen"):
+            o.prescreen = a == "--prescreen"
+            i += 1
         elif a in ("--calc-overlaps", "--linear-align", "--block-align", "--mt-align",
                    "--mt-hash", "--st-hash"):
             i += 1  # the defaults this port implements
@@ -133,7 +139,7 @@ def main(argv: list[str] | None = None) -> int:
     from sequence_aligner_tpu_torch.io.ovl import write_ovl_arrays
     from sequence_aligner_tpu_torch.models.overlapper import Overlapper
 
-    arrs = Overlapper(o.settings(), batch_size=o.batch_size,
+    arrs = Overlapper(o.settings(), batch_size=o.batch_size, prescreen=o.prescreen,
                       device=o.device).run_arrays(o.input)
     write_ovl_arrays(arrs, o.output or None)
     return 0

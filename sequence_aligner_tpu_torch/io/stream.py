@@ -1,0 +1,71 @@
+"""Streamed FASTA input: chunked scan and encode with O(chunk) host memory.
+
+Copied from ``sequence_aligner_tpu/io/stream.py`` in its pure-Python form
+(the JAX package's C++ mmap reader in ``native/`` is not ported):
+
+  * ``fasta_scan``          — one cheap pass -> (n_reads, max_len);
+  * ``iter_encoded_chunks`` — generator of ([m, l_max] int8 code matrix,
+                              [m] int32 lengths) chunks in file order.
+
+``models.overlapper.Overlapper.run_stream_arrays`` copies each chunk into
+its row slice of the device-resident read matrix.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator
+
+import numpy as np
+
+from sequence_aligner_tpu_torch.ops.encode import _LUT
+
+
+def fasta_scan(path: str) -> tuple[int, int]:
+    """(n_reads, max_body_len) in one pass."""
+    n = 0
+    cur = 0
+    mx = 0
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                n += 1
+                mx = max(mx, cur)
+                cur = 0
+            else:
+                if n == 0:
+                    raise ValueError(f"Invalid Sequence File: {path}")
+                cur += len(line.strip())
+    return n, max(mx, cur)
+
+
+def iter_encoded_chunks(
+    path: str, chunk_reads: int, l_max: int
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield (bases [m, l_max] int8, lengths [m] int32) chunks in file
+    order, m == chunk_reads except possibly the last."""
+    bases = np.zeros((chunk_reads, l_max), dtype=np.int8)
+    lengths = np.zeros(chunk_reads, dtype=np.int32)
+    m = -1  # current record index within the chunk
+    cur = 0
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                if m >= 0:
+                    lengths[m] = cur
+                if m + 1 == chunk_reads:
+                    yield bases, lengths
+                    bases = np.zeros((chunk_reads, l_max), dtype=np.int8)
+                    lengths = np.zeros(chunk_reads, dtype=np.int32)
+                    m = -1
+                m += 1
+                cur = 0
+            else:
+                if m < 0:
+                    raise ValueError(f"Invalid Sequence File: {path}")
+                body = np.frombuffer(line.strip(), dtype=np.uint8)
+                take = body[: max(l_max - cur, 0)]
+                bases[m, cur : cur + len(take)] = _LUT[take]
+                cur += len(body)
+    if m >= 0:
+        lengths[m] = cur
+        yield bases[: m + 1], lengths[: m + 1]

@@ -11,6 +11,14 @@ one device:
   launch looping at most the tier's top dove length in rows -> validity ->
   canonical (lead, trail) order.
 
+Pair generation keys pairs as one int64 for any read id.  The JAX engine
+picks its packed 16-bit-id pair path when the read count's padded tier (the
+next power of two from 256, which it pads its read matrix to) is below 2^16,
+so at most 32,768 reads; records do not depend on that choice, but the
+opt-in prescreen does, and the port computes the same tier to activate the
+screen exactly where the JAX engine does (packed ids, one read length,
+``prescreen=True``).
+
 The JAX engine also has a monolithic both-phase path it picks for small
 inputs on the TPU; both give the same records, so the port keeps only the
 split path.  The pair table, the per-pair dove lengths and the alignment
@@ -23,6 +31,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -31,13 +40,14 @@ from sequence_aligner_tpu_torch.core.records import OverlapRecord, Sequence
 from sequence_aligner_tpu_torch.core.settings import AlignSettings
 from sequence_aligner_tpu_torch.device import resolve_device
 from sequence_aligner_tpu_torch.io.fasta import read_fasta
+from sequence_aligner_tpu_torch.io.stream import fasta_scan, iter_encoded_chunks
 from sequence_aligner_tpu_torch.ops.align_fused import (
     pack_reads_le, phase1, phase2, phase2_results,
 )
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
 from sequence_aligner_tpu_torch.ops.kmer import kmer_scan
 from sequence_aligner_tpu_torch.ops.pairgen import (
-    MAX_READ_ID, candidate_pairs_stream, plan_totals, sort_occurrences,
+    candidate_pairs_stream, plan_totals, sort_occurrences,
 )
 
 # Per-class raw-stream ceiling for one device (the JAX engine's bound; its
@@ -72,6 +82,9 @@ class OverlapStats:
     n_phase2_pairs: int = 0
     dp_cells: int = 0
     dp_cells_raw: int = 0
+    # raw head x middle and tail x middle stream lengths of pair generation
+    h_tot: int = 0
+    t_tot: int = 0
 
 
 def _dove_tiers(la_max: int, width: int, min_overlap: int, min_identity: float):
@@ -140,17 +153,24 @@ def _plan_tiers(counts, lo0: int, la_max: int, *, batch: int = 1 << 20,
 
 class Overlapper:
     """Overlap engine on one device (``"cuda"`` unless the caller asks for
-    ``"cpu"``, where the kernels' plain versions run)."""
+    ``"cpu"``, where the kernels' plain versions run).
+
+    ``prescreen=True`` turns on the diagonal-coherence candidate prescreen
+    (``ops.pairgen``; empirically lossless, off by default, as in the JAX
+    engine)."""
 
     def __init__(self, settings: AlignSettings, *, batch_size: int = 1 << 20,
-                 device: str | torch.device = "cuda"):
+                 prescreen: bool = False, device: str | torch.device = "cuda"):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.s = settings
         self.batch_size = batch_size
+        self.prescreen = prescreen
         self.device = resolve_device(device)
         self.stats = OverlapStats()
         self.stage_s: dict[str, float] = {}
+        self._packed_ids = True
+        self._uniform_den = 0
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -164,16 +184,54 @@ class Overlapper:
             self.stage_s[name] = self.stage_s.get(name, 0.0) + time.perf_counter() - t0
 
     # ---- stage 1+2: k-mer occurrences ----
-    def _occurrences(self, bases_d: torch.Tensor, lengths_d: torch.Tensor):
+    def _occurrences(self, bases_d: torch.Tensor, lengths: np.ndarray):
         n = bases_d.shape[0]
+        # the JAX engine's gating, from the read tier it pads to: packed
+        # 16-bit ids below a tier of 2^16 (the prescreen's rule); the uniform
+        # read length's position range (pack_den) while (id << pos_bits |
+        # pos) fits 31 bits
+        n_tier = _pow2_at_least(n, 256)
+        self._packed_ids = n_tier < (1 << 16)
+        real = lengths[lengths > 0]
+        den = int(real[0]) - self.s.kmer_size if real.size else 0
+        self._uniform_den = (
+            den if 0 < den and n_tier.bit_length() + den.bit_length() <= 31
+            and bool((real == real[0]).all()) else 0
+        )
         ids = torch.arange(1, n + 1, dtype=torch.int32, device=self.device)
-        return kmer_scan(bases_d, lengths_d, ids, self.s.kmer_size)
+        return kmer_scan(bases_d, torch.from_numpy(lengths).to(self.device), ids,
+                         self.s.kmer_size)
 
     # ---- stage 3: candidate pairs ----
     def _geom(self):
         s = self.s
         return dict(head_edge=s.kmer_head_edge, tail_edge=s.kmer_tail_edge,
                     mid_lead=s.kmer_mid_lead_edge, mid_tail=s.kmer_mid_tail_edge)
+
+    def _prescreen_w(self) -> int | None:
+        """The prescreen's diagonal window where it is active (packed ids,
+        one read length, ``prescreen=True``), else None.  Two collisions on
+        one valid alignment's path differ in diagonal by at most its indel
+        count <= floor((1 - min_identity) * align_len), align_len <=
+        la + w + 2 (the JAX engine's window, min_identity as float32)."""
+        s = self.s
+        if not (self.prescreen and self._packed_ids and self._uniform_den):
+            return None
+        la = self._uniform_den + s.kmer_size
+        w = int(s.band_width(la))
+        tight = int((1.0 - float(s.min_identity)) * (la + w + 2))
+        if float(s.min_identity) < 0.9 or s.min_overlap < 20:
+            warnings.warn(
+                "--prescreen's losslessness argument was validated "
+                "in the amos_parity regime (min_identity ~0.98, "
+                "min_overlap 40); at these permissive settings the "
+                "window still scales with the indel budget, but "
+                "off-path-collision candidacy becomes likelier — "
+                "verify against an unscreened run before trusting "
+                "record-level parity.",
+                stacklevel=3,
+            )
+        return max(tight, 1)
 
     def _candidates_dev(self, occ):
         """The pair stream with capacities planned from the exact raw
@@ -197,7 +255,9 @@ class Overlapper:
             occ_s, **self._geom(),
             min_collisions=s.min_collisions, max_collisions=s.max_collisions,
             cap_head=cap_head, cap_tail=cap_tail, cap_out=cap_out,
+            prescreen_w=self._prescreen_w(),
         )
+        self.stats.h_tot, self.stats.t_tot = out["h_tot"], out["t_tot"]
         if out["overflow"]:  # the exact plan rules this out
             raise RuntimeError(
                 f"pair stream overflowed its planned capacity: h={h_tot}/{cap_head} "
@@ -303,19 +363,39 @@ class Overlapper:
         self.stage_s = {}
         with self._stage("encode"):
             seqs = read_fasta(path_or_seqs) if isinstance(path_or_seqs, str) else path_or_seqs
-            if len(seqs) > MAX_READ_ID:
-                raise ValueError(
-                    f"{len(seqs)} reads: this port handles at most {MAX_READ_ID} "
-                    "(16-bit read ids); the general-id pair path is not ported yet"
-                )
             bases, lengths = encode_reads(seqs)
             bases_d = torch.from_numpy(bases).to(self.device)
         return self._run_encoded(bases_d, lengths, len(seqs))
 
+    def run_stream_arrays(self, path: str, *, chunk_reads: int = 1 << 15):
+        """Streamed variant of ``run_arrays`` for a FASTA file: the
+        [n_reads, l_max] read matrix is allocated on the device once and
+        each encoded chunk of ``chunk_reads`` reads is copied into its row
+        slice, so host memory stays O(chunk_reads * l_max) whatever the
+        input size.  The output equals ``run_arrays(path)``."""
+        if chunk_reads < 1:
+            raise ValueError("chunk_reads must be >= 1")
+        self.stats = OverlapStats()
+        self.stage_s = {}
+        with self._stage("encode"):
+            n_input, l_max = fasta_scan(path)
+            bases_d = torch.zeros((n_input, l_max), dtype=torch.int8, device=self.device)
+            lengths = np.zeros(n_input, np.int32)
+            lo = 0
+            for bases_c, lens_c in iter_encoded_chunks(path, min(chunk_reads, max(n_input, 1)),
+                                                       l_max):
+                m = bases_c.shape[0]
+                bases_d[lo : lo + m].copy_(torch.from_numpy(bases_c))
+                lengths[lo : lo + m] = lens_c
+                lo += m
+            if lo != n_input:
+                raise RuntimeError(f"{path}: scanned {n_input} reads, encoded {lo}")
+        return self._run_encoded(bases_d, lengths, n_input)
+
     def _run_encoded(self, bases_d: torch.Tensor, lengths: np.ndarray, n_input: int):
         self.stats.n_reads = n_input
         with self._stage("kmer"):
-            occ = self._occurrences(bases_d, torch.from_numpy(lengths).to(self.device))
+            occ = self._occurrences(bases_d, lengths)
             self.stats.n_kmers = int(occ["valid"].sum())
         with self._stage("pairgen"):
             if occ["hash"].numel() == 0:

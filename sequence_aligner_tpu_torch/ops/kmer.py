@@ -7,8 +7,11 @@ read batch: the rolling 2-bit hash is an unrolled shift/xor over k slices
 cap), wrapping in int32 exactly as the JAX op does; ``loc = i / (len - k)``
 is computed in float32 (0/0 -> NaN like the reference).
 
-Output is a flat occurrence table (hash, read_id, loc, valid), each
+Output is a flat occurrence table (hash, read_id, loc, valid, pos), each
 [N * (L - k + 1)]; slots past a read's end are masked, not compacted.
+``pos`` is the integer k-mer position that ``loc`` normalises: the
+prescreen's collision diagonals are differences of it, never recovered
+from the float ``loc``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ _MASK32 = (1 << 32) - 1
 def kmer_scan(bases: torch.Tensor, lengths: torch.Tensor,
               read_ids: torch.Tensor, k: int) -> dict[str, torch.Tensor]:
     """bases [N, L] int8, lengths [N] int32, read_ids [N] int32 ->
-    dict(hash int32, read_id int32, loc float32, valid bool), each
-    [N * (L - k + 1)], on the device of ``bases``."""
+    dict(hash int32, read_id int32, loc float32, valid bool, pos int32),
+    each [N * (L - k + 1)], on the device of ``bases``."""
     n, l = bases.shape
     dev = bases.device
     npos = max(l - k + 1, 0)
@@ -30,7 +33,7 @@ def kmer_scan(bases: torch.Tensor, lengths: torch.Tensor,
         z = torch.zeros(0, dtype=torch.int32, device=dev)
         return dict(hash=z, read_id=z.clone(),
                     loc=torch.zeros(0, dtype=torch.float32, device=dev),
-                    valid=torch.zeros(0, dtype=torch.bool, device=dev))
+                    valid=torch.zeros(0, dtype=torch.bool, device=dev), pos=z.clone())
     b = bases.to(torch.int64)
     # int64 with a 32-bit mask is the int32 wrap of (h << 2) ^ code
     h = torch.zeros((n, npos), dtype=torch.int64, device=dev)
@@ -48,4 +51,5 @@ def kmer_scan(bases: torch.Tensor, lengths: torch.Tensor,
         read_id=rid.reshape(-1).contiguous(),
         loc=loc.reshape(-1),
         valid=valid.reshape(-1),
+        pos=pos.expand(n, npos).reshape(-1),
     )

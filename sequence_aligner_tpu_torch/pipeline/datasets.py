@@ -3,6 +3,8 @@
 ``simulated_reads`` draws a random genome sized for the requested coverage
 and shreds it into an even tiling of reads; with the same seed it gives the
 same reads as the JAX package (both draw from ``np.random.RandomState``).
+``planted_repeat_reads`` (the port's own) does the same on a genome with
+many copies of short planted k-mers, where the prescreen has work to do.
 """
 
 from __future__ import annotations
@@ -57,6 +59,31 @@ def simulated_reads(
     rng = np.random.RandomState(seed)
     genome_len = max(int(n_reads * read_len / coverage), read_len + 1)
     genome = "".join(_BASES[i] for i in rng.randint(0, 4, genome_len))
+    return shred_genome(
+        genome, n_reads, read_len, error_rate=error_rate, seed=seed + 1
+    )
+
+
+def planted_repeat_reads(
+    n_reads: int,
+    read_len: int = 100,
+    *,
+    coverage: float = 5.0,
+    error_rate: float = 0.01,
+    seed: int = 0,
+) -> list[Sequence]:
+    """Reads of a random genome carrying one planted 12-mer per 375 bp,
+    each in 20 copies at random places: read pairs that share two planted
+    k-mers at unrelated offsets collide on scattered diagonals, which the
+    diagonal-coherence prescreen drops."""
+    rng = np.random.RandomState(seed)
+    genome_len = max(int(n_reads * read_len / coverage), read_len + 1)
+    g = rng.randint(0, 4, genome_len)
+    for _ in range(genome_len // 375):
+        motif = rng.randint(0, 4, 12)
+        for p in rng.randint(0, genome_len - 12, 20):
+            g[p : p + 12] = motif
+    genome = "".join(_BASES[i] for i in g)
     return shred_genome(
         genome, n_reads, read_len, error_rate=error_rate, seed=seed + 1
     )

@@ -1,11 +1,12 @@
 """Instruction mix of the compiled kernels' row loops.
 
-    python -m sequence_aligner_tpu_torch.sass_mix [--source dovetail] [--sass FILE]
+    python -m sequence_aligner_tpu_torch.sass_mix [--source dovetail|probes] [--sass FILE]
 
 Builds ``csrc/<source>.cu`` (see ``_build.py``), disassembles it with
 ``cuobjdump -sass`` (or reads a saved dump with ``--sass``) and prints, for
 each kernel instance, the instructions of its outermost loop (the span of its
-longest backward branch: the DP row loop of the dovetail kernels) by opcode
+longest backward branch: the DP row loop of the dovetail kernels, the chain
+loop of the probes) by opcode
 family, with the share of register moves (``MOV``, ``IMAD.MOV``), control flow
 and the rest.  Register moves cost an issue slot but do no work of the DP.
 """
@@ -78,9 +79,34 @@ def mix(loop: list[tuple[int, str]]) -> dict:
                 families=dict(fam.most_common()))
 
 
+_TYPES = {"a": "int8_t", "s": "int16_t", "i": "int32_t",
+          "h": "uint8_t", "t": "uint16_t", "j": "uint32_t"}
+
+
 def _demangle_short(name: str) -> str:
-    m = re.search(r"(phase\d_kernel)ILi(\d+)E", name)
-    return f"{m.group(1)}<{m.group(2)}>" if m else name
+    """``kernel<args>`` for a templated kernel's mangled name, with integer
+    and integer-type template arguments; the anonymous namespace
+    (``_ZN41_GLOBAL__N__..._9_probes_cu_...17pack_probe_kernelILi1EEE...``)
+    is dropped."""
+    m = re.match(r"_ZN?", name)
+    if not m:
+        return name
+    i, base = m.end(), None
+    while (d := re.match(r"\d+", name[i:])):  # length-prefixed identifiers
+        n = int(d.group())
+        ident = name[i + d.end() : i + d.end() + n]
+        i += d.end() + n
+        if not ident.startswith("_GLOBAL__N"):
+            base = ident
+            break
+    if base is None:
+        return name
+    rest = name[i:]
+    if not rest.startswith("I"):
+        return base
+    args = [lit or _TYPES[typ] for lit, typ in
+            re.findall(r"Li(-?\d+)E|([ashtij])", rest[1 : rest.find("EE") + 1])]
+    return f"{base}<{', '.join(args)}>"
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,7 +1,8 @@
 """Where one calc-overlaps run spends its time on the card.
 
     python -m sequence_aligner_tpu_torch.trace [--reads 32000] [--length 100]
-        [--coverage 20] [--seed 0] [--trace-out trace.json]
+        [--coverage 20] [--seed 0] [--kmer-size 12] [--amos-parity]
+        [--trace-out trace.json]
 
 Runs ``Overlapper.run_arrays`` on simulated reads twice to warm up, then once
 under ``torch.profiler`` (CPU and CUDA activity), and prints one JSON line:
@@ -42,11 +43,15 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--length", type=int, default=100)
     ap.add_argument("--coverage", type=float, default=20.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kmer-size", type=int, default=12)
+    ap.add_argument("--amos-parity", action="store_true",
+                    help="collision band [2, 222] (AlignSettings.amos_parity)")
     ap.add_argument("--trace-out", default="")
     a = ap.parse_args(argv)
     dev = resolve_device("cuda")
     reads = simulated_reads(a.reads, a.length, coverage=a.coverage, seed=a.seed)
-    ov = Overlapper(AlignSettings(), device=dev)
+    s = (AlignSettings.amos_parity if a.amos_parity else AlignSettings)(kmer_size=a.kmer_size)
+    ov = Overlapper(s, device=dev)
     for _ in range(2):
         ov.run_arrays(reads)
     torch.cuda.synchronize()

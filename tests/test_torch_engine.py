@@ -141,10 +141,14 @@ def test_cli_refuses_modes_not_ported(tmp_path):
         cli_main(["--device", "cpu"])  # no input
 
 
-def test_run_arrays_rejects_65536_reads():
+def test_run_arrays_takes_65536_reads_on_the_general_path():
+    """65,536 reads were refused before the general-id pair path existed;
+    now they are taken, on that path (tests/test_torch_pairgen_general.py
+    holds its records against the JAX engine)."""
     seqs = [Sequence(i + 1, "ACGT") for i in range(1 << 16)]
-    with pytest.raises(ValueError, match="65535"):
-        Overlapper(settings_from_jax(JSettings()), device="cpu").run_arrays(seqs)
+    ov = Overlapper(settings_from_jax(JSettings()), device="cpu")
+    assert all(len(a) == 0 for a in ov.run_arrays(seqs))
+    assert ov.stats.n_reads == 1 << 16 and not ov._packed_ids
 
 
 def test_run_records_and_empty_input():

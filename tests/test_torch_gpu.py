@@ -17,8 +17,14 @@ from sequence_aligner_tpu_torch.core.records import Sequence
 from sequence_aligner_tpu_torch.core.settings import AlignSettings
 from sequence_aligner_tpu_torch.models.overlapper import Overlapper
 from sequence_aligner_tpu_torch.ops import align_fused as af
+from sequence_aligner_tpu_torch.ops import pairgen
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
-from sequence_aligner_tpu_torch.pipeline.datasets import simulated_reads
+from sequence_aligner_tpu_torch.ops.kmer import kmer_scan
+from sequence_aligner_tpu_torch.pipeline.datasets import (
+    planted_repeat_reads, simulated_reads, write_seq,
+)
+from sequence_aligner_tpu_torch.probes import dtype_probe as dp
+from sequence_aligner_tpu_torch.probes import pack_probe as pp
 
 pytestmark = pytest.mark.gpu
 
@@ -104,3 +110,68 @@ def test_engine_on_the_card_equals_the_cpu(cuda):
     assert len(got[0]) > 0
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("p", [1024, 1000])  # one ragged block
+@pytest.mark.parametrize("variant", pp.VARIANTS)
+def test_pack_probe_kernels_equal_plain_versions(cuda, variant, p):
+    x = torch.from_numpy(pp.probe_input(p, fields=1 if variant == "native" else 2,
+                                        seed=p)).to(cuda)
+    n = pp.launches[variant]
+    got = pp.pack_probe(x, variant)
+    torch.cuda.synchronize()
+    assert pp.launches[variant] == n + 1
+    assert torch.equal(got, pp.pack_probe_plain(x, variant))
+    if variant == "native":
+        assert torch.equal(got, torch.amax(x, 0, keepdim=True).expand_as(x))
+
+
+@pytest.mark.parametrize("p", [1024, 1000])
+@pytest.mark.parametrize("variant", dp.VARIANTS)
+def test_dtype_probe_kernels_equal_plain_versions(cuda, variant, p):
+    name = variant[:-2] if variant.endswith(("x2", "x4")) else variant
+    packed = name != variant
+    x, y = (torch.from_numpy(a).to(cuda) for a in dp.probe_inputs(p, name, seed=p))
+    n = dp.launches[variant]
+    got = dp.dtype_probe(x, y, packed=packed)
+    torch.cuda.synchronize()
+    assert dp.launches[variant] == n + 1
+    assert torch.equal(got, dp.dtype_probe_plain(x, y))
+
+
+def test_ids_past_16_bits_on_the_card_equal_the_cpu(cuda):
+    bases, lengths = encode_reads(simulated_reads(4000, 100, coverage=20.0, seed=5))
+    ids = torch.arange(70001, 74001, dtype=torch.int32)
+    geom = dict(head_edge=S.kmer_head_edge, tail_edge=S.kmer_tail_edge,
+                mid_lead=S.kmer_mid_lead_edge, mid_tail=S.kmer_mid_tail_edge)
+    kw = dict(min_collisions=S.min_collisions, max_collisions=S.max_collisions,
+              cap_head=1 << 22, cap_tail=1 << 22, cap_out=1 << 20, **geom)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        occ = pairgen.sort_occurrences(kmer_scan(torch.from_numpy(bases).to(dev),
+                                                 torch.from_numpy(lengths).to(dev),
+                                                 ids.to(dev), 12))
+        out[dev.type] = pairgen.candidate_pairs_stream(occ, chunk=1 << 16, **kw)
+    a, b = out["cuda"], out["cpu"]
+    assert a["n_out"] == b["n_out"] > 0 and int(a["lead"].max()) > 70000
+    for f in ("lead", "trail", "count"):
+        assert torch.equal(a[f].cpu(), b[f])
+
+
+def test_stream_and_prescreen_on_the_card_equal_the_cpu(cuda, tmp_path):
+    seqs = simulated_reads(1500, 100, coverage=20.0, error_rate=0.01, seed=6)
+    path = str(tmp_path / "r.fasta")
+    write_seq(seqs, path)
+    s = AlignSettings.amos_parity()
+    got = Overlapper(s, device=cuda).run_stream_arrays(path, chunk_reads=256)
+    want = Overlapper(s, device="cpu").run_arrays(seqs)
+    assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
+    rep = planted_repeat_reads(1500, 100, seed=7)
+    n_cand = []
+    for screen in (False, True):
+        ov = Overlapper(s, prescreen=screen, device=cuda)
+        got = ov.run_arrays(rep)
+        want = Overlapper(s, prescreen=screen, device="cpu").run_arrays(rep)
+        assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
+        n_cand.append(ov.stats.n_candidate_pairs)
+    assert n_cand[1] < n_cand[0]  # the screen dropped candidates on the card

@@ -183,10 +183,16 @@ def test_candidate_pairs_overflow_flag():
 
 
 def test_candidate_pairs_rejects_ids_past_16_bits():
+    """Where pairs are keyed in 16 bits (the prescreen's key), ids past 16
+    bits are refused; the unscreened int64 key takes them."""
     occ = dict(hash=torch.zeros(4, dtype=torch.int32),
                read_id=torch.tensor([1, 2, 3, 65536], dtype=torch.int32),
-               loc=torch.full((4,), 0.5), valid=torch.ones(4, dtype=torch.bool))
-    with pytest.raises(ValueError, match="general-id"):
-        pairgen.candidate_pairs_stream(
-            pairgen.sort_occurrences(occ), **_geom(JSettings()), min_collisions=1,
-            max_collisions=9, cap_head=64, cap_tail=64, cap_out=64)
+               loc=torch.tensor([0.2, 0.5, 0.8, 0.5]), valid=torch.ones(4, dtype=torch.bool),
+               pos=torch.zeros(4, dtype=torch.int32))
+    kw = dict(**_geom(JSettings()), min_collisions=1, max_collisions=9, cap_head=64,
+              cap_tail=64, cap_out=64)
+    with pytest.raises(ValueError, match="16-bit"):
+        pairgen.candidate_pairs_stream(pairgen.sort_occurrences(occ), prescreen_w=4, **kw)
+    out = pairgen.candidate_pairs_stream(pairgen.sort_occurrences(occ), **kw)
+    assert out["n_out"] == 4 and not out["overflow"]
+    assert out["lead"][:4].tolist() == [2, 3, 3, 65536]
