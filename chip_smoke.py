@@ -8,20 +8,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the CUDA kernels from ``sequence_aligner_tpu_torch/csrc`` with
 nvcc, then, each phase fatal on failure:
 
-  1. prints the card (nvidia-smi name and power limit) and the ptxas
-     register / spill lines of the build;
+  1. prints the card (nvidia-smi name and power limit), the ptxas
+     register / spill lines of the build and, as one JSON line, the
+     registers and spill bytes of every kernel instance;
   2. drives the main path — ``Overlapper.run_arrays`` (calc-overlaps) on
      32,000 simulated 100 bp reads at coverage 20 — with every kernel launch
      counter set to 0 just before and read just after; both kernels must have
      launched.  Prints reads, candidate pairs, valid records, DP cells, the
      stage times, reads/s and peak device memory;
   3. holds each kernel against its plain PyTorch version on the card: the
-     first 65,536 real pairs of the main path's largest launch, random pairs,
-     and mixed-length batches at band widths 12, 20, 40 and 70 (every
-     register capacity and the scratch instance); outputs must be equal
-     (integers, tolerance 0), and ulen = L must equal ulen = 0.  Then times
-     each kernel with CUDA events on the main path's largest launch, beside
-     its plain version and its bound;
+     first 65,536 real pairs of the main path's largest launch (captured
+     from the engine's ``phase1_indexed`` / ``phase2_indexed`` calls),
+     random pairs, and mixed-length batches at band widths 12, 16, 20, 31,
+     40, 60 and 70 (the exact register instances, the four capacity
+     instances and the scratch instance), and scores past 16 bits (the
+     scratch instance); outputs must be equal (integers, tolerance 0), and
+     ulen = L must equal ulen = 0.  Then times each kernel with CUDA events
+     on the main path's largest launch, and the capacity and general
+     instances on the mixed batch, beside their plain versions and bounds;
+  3b. reads of 32,768 bp or more: the engine on two 33,000 bp reads offset
+     by 10,000 must give the JAX engine's (1, 2, 10000, 10000); both
+     kernels' wide instances on two 34,000 bp reads (33,500 rows of phase
+     2, counts past 2^15) equal their plain versions, then are timed;
   4. runs the engine on 2,048 reads (100 bp, and mixed lengths with 1%
      errors) on the card and on the CPU: the canonical arrays must be equal
      (the CPU side is the path the CPU tests hold against the JAX package);
@@ -36,7 +44,7 @@ nvcc, then, each phase fatal on failure:
      sets must be equal and hold the JAX engine's record and candidate
      counts.  Each kernel is held against its plain version on the first
      65,536 pairs of its largest launch in the ``run_arrays`` run (w = 16,
-     the 32-column instances), then timed there.  Prints reads, candidate
+     the exact 16-column instances), then timed there.  Prints reads, candidate
      pairs, records, the raw stream totals, stage times, reads/s and peak
      device memory;
   7. the prescreen on the card: phase 2's reads through the screened and
@@ -73,12 +81,20 @@ N_CHECK = 65536
 # candidate pairs for it)
 N_LARGE, K_LARGE, COVERAGE_LARGE = 1_000_000, 16, 8.0
 RECORDS_JAX_1M, CANDIDATES_JAX_1M = 3_999_987, 4_104_565
-# int32 operations per band cell, counted from csrc/dovetail.cu along one
-# cell's usual path (in band, M branch, no new best), with Hopper's fused
-# 3-input max and add-max (VIMNMX3, VIADDMNMX) as one operation each and
-# register moves not counted (python -m sequence_aligner_tpu_torch.sass_mix
-# shows the compiled instruction mix)
-OPS_PER_CELL = {"phase1": 28, "phase2": 34}
+# int32 operations per band cell: the fewest the DP needs by either of two
+# counts, with Hopper's fused 3-input max and add-max (VIMNMX3, VIADDMNMX)
+# as one operation each and no register moves, control flow, loads or loop
+# counters.  By hand from the cell of csrc/dovetail.cu: phase 1 21 (score 1,
+# M 1, X chain 3, max 1, Y chain 3, D 1, stop select 4, position 1, live
+# select 2, running best 4), phase 2 37.  The straightforward kernel's usual
+# path (in band, M branch, no new best): 28 and 34.  Both counts stay at or
+# below the compiled row loops' own (python -m
+# sequence_aligner_tpu_torch.sass_mix: 22.5 and 38.0 non-move, non-control
+# instructions a cell at w = 16), so no bound counts more than the DP needs
+OPS_PER_CELL = {"phase1": 21, "phase2": 34}
+# one width for each instance off the main paths: capacity24 .. capacity64
+# (w = 20, 31, 40, 60; the same instance in both phases) and general (70)
+OFF_PATH_WIDTHS = (20, 31, 40, 60, 70)
 ROOT = Path(__file__).resolve().parent
 
 
@@ -137,6 +153,7 @@ def reset_counts() -> None:
     from sequence_aligner_tpu_torch.probes import pack_probe as pp
 
     af.phase1_launches = af.phase2_launches = 0
+    af.instance_launches.clear()
     for counts in (pp.launches, dp.launches):
         for v in counts:
             counts[v] = 0
@@ -159,9 +176,10 @@ def check_records(arrs, n_reads: int, s) -> None:
 
 @contextlib.contextmanager
 def largest_launches():
-    """Route the engine's ``phase1`` / ``phase2`` calls through a wrapper
-    that keeps the arguments of each phase's largest launch; yields
-    {name: (args, kwargs, pairs)}.  The wrapper adds no launch."""
+    """Route the engine's ``phase1_indexed`` / ``phase2_indexed`` calls
+    through a wrapper that keeps the arguments of each phase's largest
+    launch; yields {name: (args, kwargs, pairs)}.  The wrapper adds no
+    launch."""
     from sequence_aligner_tpu_torch.models import overlapper as ovmod
     from sequence_aligner_tpu_torch.ops import align_fused as af
 
@@ -169,18 +187,29 @@ def largest_launches():
 
     def capture(name, real):
         def wrapped(*args, **kw):
-            p = kw.get("a_len", args[2] if name == "phase1" else args[4]).shape[0]
+            p = args[1].shape[0]  # a_idx
             if p > captured.get(name, ((), {}, -1))[2]:
                 captured[name] = (args, dict(kw), p)
             return real(*args, **kw)
         return wrapped
 
-    ovmod.phase1 = capture("phase1", af.phase1)
-    ovmod.phase2 = capture("phase2", af.phase2)
+    ovmod.phase1_indexed = capture("phase1", af.phase1_indexed)
+    ovmod.phase2_indexed = capture("phase2", af.phase2_indexed)
     try:
         yield captured
     finally:
-        ovmod.phase1, ovmod.phase2 = af.phase1, af.phase2
+        ovmod.phase1_indexed, ovmod.phase2_indexed = af.phase1_indexed, af.phase2_indexed
+
+
+def pair_slice(args, n):
+    """A launch's arguments cut to its first ``n`` pairs: the read table and
+    the lengths stay whole, the per-pair vectors are cut."""
+    return (args[0], *(t[:n].contiguous() for t in args[1:-1]), args[-1])
+
+
+def plain_kw(kw: dict) -> dict:
+    """A wrapper's keywords without the one its plain version lacks."""
+    return {k: v for k, v in kw.items() if k != "indices_checked"}
 
 
 def check_real_pairs(name, args, kw, p, what) -> int:
@@ -192,10 +221,10 @@ def check_real_pairs(name, args, kw, p, what) -> int:
     from sequence_aligner_tpu_torch.ops import align_fused as af
 
     n = min(N_CHECK, p)
-    sub = tuple(t[..., :n].contiguous() for t in args)
-    got = getattr(af, name)(*sub, **kw)
+    sub = pair_slice(args, n)
+    got = getattr(af, name + "_indexed")(*sub, **kw)
     torch.cuda.synchronize()
-    want = getattr(af, name + "_plain")(*sub, **kw)
+    want = getattr(af, name + "_indexed_plain")(*sub, **plain_kw(kw))
     err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
     if err:
         raise AssertionError(f"{name} differs from its plain version on {what}: "
@@ -205,29 +234,40 @@ def check_real_pairs(name, args, kw, p, what) -> int:
     return err
 
 
-def kernel_entry(name, args, kw, p, *, launches, max_err, sms, sm_mhz, tag="") -> dict:
-    """Times a captured launch with CUDA events beside its plain version and
-    its bound; returns its entry of the kernels line."""
+def kernel_entry(name, args, kw, p, *, launches, max_err, sms, sm_mhz, tag="",
+                 plain_ms=None) -> dict:
+    """Times a launch with CUDA events beside its plain version and its
+    bound; returns its entry of the kernels line.  ``plain_ms``: the plain
+    version's time, where the caller measured it."""
     from sequence_aligner_tpu_torch.measure import bound_ms, event_ms
     from sequence_aligner_tpu_torch.ops import align_fused as af
 
-    kern = getattr(af, name)
-    plain = getattr(af, name + "_plain")
-    ms = event_ms(lambda: kern(*args, **kw), reps=10, warm=2)
-    plain_ms = event_ms(lambda: plain(*args, **kw), reps=1, warm=1)
+    # the wrapper as the engine calls it: indices checked once by the caller
+    kern = getattr(af, name + "_indexed")
+    plain = getattr(af, name + "_indexed_plain")
+    kw = plain_kw(kw)
+    ms = event_ms(lambda: kern(*args, indices_checked=True, **kw), reps=10, warm=2)
+    if plain_ms is None:
+        plain_ms = event_ms(lambda: plain(*args, **kw), reps=1, warm=1)
     w = kw["w"]
+    packed, lengths = args[0], args[-1]
+    wpr = packed.shape[1]
     if name == "phase1":
-        aw, bw, a_len = args
-        rows = a_len.clamp(max=kw["la_max"]).long().sum().item()
+        _, a_idx, b_idx, _ = args
+        rows = lengths[a_idx.long()].clamp(max=kw["la_max"]).long().sum().item()
         cells = rows * w  # band columns 1..w
-        nbytes = 4 * (aw.numel() + bw.numel() + a_len.numel() + 5 * p)
+        # A's row, B's first w codes, two indices and a length in; 5 words out
+        nbytes = 4 * p * (wpr + (w + 15) // 16 + 3 + 5)
     else:
-        aw, bw, ds, dl, bl = args
+        _, a_idx, b_idx, ds, dl, _ = args
         rows = dl.clamp(min=0, max=kw["la_max"]).long().sum().item()
         cells = rows * (w + 1)  # band columns 0..w
-        nbytes = 4 * (aw.numel() + bw.numel() + 3 * p + 7 * p)
+        # A's and B's rows, two indices, ds, dlen and a length in; 7 words out
+        nbytes = 4 * p * (2 * wpr + 5 + 7)
     bound, by = bound_ms(cells * OPS_PER_CELL[name], nbytes, sms, sm_mhz)
-    log(f"  {name}{tag}: P={p} w={w} rows={kw['la_max']} cells={cells} "
+    inst = af.instance(1 if name == "phase1" else 2, w=w, rows=kw["la_max"],
+                       cm_tuple=kw["cm_tuple"])
+    log(f"  {name}{tag} ({inst} instance): P={p} w={w} rows={kw['la_max']} cells={cells} "
         f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound:.4f} ms "
         f"({by}; {OPS_PER_CELL[name]} int32 ops/cell, {nbytes} bytes), "
         f"{cells / ms / 1e6:.2f} G cells/s")
@@ -252,6 +292,7 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
     import torch
 
     from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+    from sequence_aligner_tpu_torch.ops import align_fused as af
 
     dev = torch.device("cuda")
     res = {}
@@ -266,6 +307,7 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
             launches = {k: v for k, v in launch_counts().items() if v}
+            by_instance = dict(af.instance_launches)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         st = ov.stats
         log(f"  {name}: reads {st.n_reads}  k-mers {st.n_kmers}  h_tot {st.h_tot}  "
@@ -274,7 +316,7 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
         log(f"  {name}: stage times (s) "
             + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
         log(f"  {name}: wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; peak device "
-            f"memory {peak:.1f} MiB; launches {launches}")
+            f"memory {peak:.1f} MiB; launches {launches}; by instance {by_instance}")
         if min(launches.get("phase1", 0), launches.get("phase2", 0)) < 1:
             raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
         check_records(arrs, n_reads, s)
@@ -297,6 +339,100 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
         entries.append(kernel_entry(name, args, kw, p, launches=res["run_arrays"]["launches"][name],
                                     max_err=err, sms=sms, sm_mhz=sm_mhz, tag="_1m"))
     return entries
+
+
+def long_pair(total: int, length: int, offset: int):
+    """Two reads of ``length`` bp from one random genome of ``total`` bp, the
+    second starting ``offset`` bp into the first."""
+    import numpy as np
+
+    from sequence_aligner_tpu_torch.core.records import Sequence
+
+    g = "".join("ACTG"[i] for i in np.random.RandomState(0).randint(0, 4, total))
+    return [Sequence(1, g[:length]), Sequence(2, g[offset : offset + length])]
+
+
+def wide_rows_phase(dev, sms: int, sm_mhz: float) -> list[dict]:
+    """Phase 3b: reads of 32,768 bp or more.  The engine on two 33,000 bp
+    reads offset by 10,000 must give the JAX engine's record; then both
+    kernels' wide instances on two 34,000 bp reads offset by 500 (phase 2's
+    dove is 33,500 rows) against their plain versions, run on CPU copies of
+    the same inputs.  Returns the wide instances' entries of the kernels
+    line."""
+    import numpy as np
+    import torch
+
+    from sequence_aligner_tpu_torch.core.settings import AlignSettings
+    from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+    from sequence_aligner_tpu_torch.ops.encode import encode_reads
+
+    s = AlignSettings(min_identity=0.9996, max_ignore=100000, max_collisions=10**8)
+    got = [a.tolist() for a in Overlapper(s, device=dev).run_arrays(
+        long_pair(43000, 33000, 10000))]
+    if got != [[1], [2], [10000], [10000]]:
+        raise AssertionError(f"two 33,000 bp reads give {got}, the JAX engine "
+                             f"(1, 2, 10000, 10000)")
+    log("  engine: two 33,000 bp reads offset by 10,000 -> (1, 2, 10000, 10000), as "
+        "the JAX engine")
+    bases, lengths = encode_reads(long_pair(34500, 34000, 500))
+    packed = af.pack_reads_le(torch.from_numpy(bases).to(dev))
+    ln = torch.from_numpy(lengths).to(dev)
+    ia = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    ib = (1 - ia).contiguous()
+    w = s.band_width(34000)
+    common = dict(w=w, gO=s.gap_open, gE=s.gap_extend, cm_tuple=s.cm_tuple())
+    entries = []
+    ops = (packed, ia, ib, ln)
+    for name in ("phase1", "phase2"):
+        if name == "phase1":
+            kw = dict(common, la_max=34000)
+        else:  # from phase 1's dove anchors (its plain outputs, equal to the kernel's)
+            ds = torch.where(want[0] > 0, want[3], want[1]).to(dev)
+            dl = (ln[ia.long()] - ds).contiguous()
+            ops = (packed, ia, ib, ds, dl, ln)
+            kw = dict(common, la_max=int(dl.max()), zero_row=w // 2)
+        inst = af.instance(1 if name == "phase1" else 2, w=w, rows=kw["la_max"],
+                           cm_tuple=s.cm_tuple())
+        if inst != "wide":
+            raise AssertionError(f"{name} at {kw['la_max']} rows took the {inst} instance")
+        got = getattr(af, name + "_indexed")(*ops, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = getattr(af, name + "_indexed_plain")(*(t.cpu() for t in ops), **kw)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((g.cpu().long() - h.long()).abs().max()) for g, h in zip(got, want))
+        if err:
+            raise AssertionError(f"{name}'s wide instance differs from its plain version: "
+                                 f"max |diff| {err}")
+        log(f"  equal: {name}, wide instance, {kw['la_max']} rows, w={w}: "
+            + ", ".join(str(t.tolist()) for t in got))
+        entries.append(kernel_entry(name, ops, kw, 2, launches=0, max_err=err, sms=sms,
+                                    sm_mhz=sm_mhz, tag="_wide", plain_ms=plain_ms))
+    if not int(np.asarray(got[5].cpu()).max()) > 1 << 15:
+        raise AssertionError("phase 2's counts did not pass 2^15 on the wide pair")
+    return entries
+
+
+def register_report(logs: dict) -> dict:
+    """{kernel instance: {registers, spill_stores, spill_loads}} from the
+    ptxas -v lines of the build."""
+    import re
+
+    from sequence_aligner_tpu_torch.sass_mix import _demangle_short
+
+    out, cur = {}, None
+    for text in logs.values():
+        for line in text.splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                cur = _demangle_short(m.group(1))
+                out[cur] = {}
+            elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                                         r"loads", line)):
+                out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def prescreen_phase(dev, reads, s) -> None:
@@ -417,6 +553,7 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  ptxas ({src}): {line.strip()}")
+        log(json.dumps({"registers": register_report(logs)}))
         af._lib()  # load and bind now, so a binding fault fails here
         probes.lib()
 
@@ -437,6 +574,7 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts()
+            by_instance = dict(af.instance_launches)
         peak = torch.cuda.max_memory_allocated()
         st = ov.stats
         log(f"reads {st.n_reads}  k-mers {st.n_kmers}  candidate pairs "
@@ -444,7 +582,8 @@ def main() -> int:
             f"{st.n_valid}  dp_cells {st.dp_cells}  dp_cells_raw {st.dp_cells_raw}")
         log("stage times (s): " + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
         log(f"run_arrays wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; "
-            f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
+            f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}; by "
+            f"instance {by_instance}")
         if min(launches["phase1"], launches["phase2"]) < 1:
             return fail(f"a kernel of the main path never launched: {launches}")
         if len(arrs[0]) != st.n_valid:
@@ -462,81 +601,108 @@ def main() -> int:
                 raise AssertionError(f"{name} output {i} differs from its plain version "
                                      f"({what}): max |diff| {err}")
 
-    def check_phase1(aw, bw, a_len, la_max, w, what, ulen=0):
+    def check_phase1(ops, la_max, w, what, ulen=0):
         kw = dict(la_max=la_max, w=w, gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm)
-        k1 = af.phase1(aw, bw, a_len, **kw)
+        k1 = af.phase1_indexed(*ops, **kw)
         torch.cuda.synchronize()
-        p1 = af.phase1_plain(aw, bw, a_len, **kw)
+        p1 = af.phase1_indexed_plain(*ops, **kw)
         compare("phase1", k1, p1, what)
         if ulen:
-            compare("phase1", af.phase1(aw, bw, a_len, ulen=ulen, **kw), k1, what + ", ulen")
+            compare("phase1", af.phase1_indexed(*ops, ulen=ulen, **kw), k1, what + ", ulen")
             torch.cuda.synchronize()
         return p1
 
-    def check_phase2(aw, bw, ds, dl, b_len, la_max, w, what, ulen=0):
+    def check_phase2(ops, la_max, w, what, ulen=0):
         kw = dict(la_max=la_max, w=w, zero_row=w // 2, gO=s.gap_open, gE=s.gap_extend,
                   cm_tuple=cm)
-        k2 = af.phase2(aw, bw, ds, dl, b_len, **kw)
+        k2 = af.phase2_indexed(*ops, **kw)
         torch.cuda.synchronize()
-        compare("phase2", k2, af.phase2_plain(aw, bw, ds, dl, b_len, **kw), what)
+        compare("phase2", k2, af.phase2_indexed_plain(*ops, **kw), what)
         if ulen:
-            compare("phase2", af.phase2(aw, bw, ds, dl, b_len, ulen=ulen, **kw), k2,
-                    what + ", ulen")
+            compare("phase2", af.phase2_indexed(*ops, ulen=ulen, **kw), k2, what + ", ulen")
             torch.cuda.synchronize()
         return int((k2[0] > 0).sum())
 
-    def check(aw, bw, a_len, b_len, la_max, w, what, ulen=0):
-        """Both phases on one batch; phase 2 from phase 1's dove anchors."""
-        p1 = check_phase1(aw, bw, a_len, la_max, w, what, ulen)
+    def phase2_ops(ops, p1, w):
+        """Phase 2's operands from phase 1's dove anchors."""
+        packed, ia, ib, ln = ops
+        a_len, b_len = ln[ia.long()], ln[ib.long()]
         ds = torch.where((p1[0] > 0) & (b_len >= w), p1[3], p1[1]).contiguous()
-        live = check_phase2(aw, bw, ds, (a_len - ds).contiguous(), b_len, la_max, w,
-                            what, ulen)
-        log(f"  equal: {what} ({a_len.numel()} pairs, w={w}"
-            f"{', ulen=%d' % ulen if ulen else ''}; phase-2 live {live})")
+        return packed, ia, ib, ds, (a_len - ds).contiguous(), ln
+
+    def check(ops, la_max, w, what, ulen=0):
+        """Both phases on one batch; phase 2 from phase 1's dove anchors."""
+        p1 = check_phase1(ops, la_max, w, what, ulen)
+        live = check_phase2(phase2_ops(ops, p1, w), la_max, w, what, ulen)
+        log(f"  equal: {what} ({ops[1].numel()} pairs, w={w}"
+            f"{', ulen=%d' % ulen if ulen else ''}, instance "
+            f"{af.instance(1, w=w, rows=la_max, cm_tuple=cm)}; phase-2 live {live})")
 
     def batch(seqs, pairs):
+        """(packed read table, a_idx, b_idx, lengths) and la_max on the card."""
         from sequence_aligner_tpu_torch.ops.encode import encode_reads
 
         bases, lengths = encode_reads(seqs)
-        packed = af.pack_reads_le(torch.from_numpy(bases).to(dev))
-        ln = torch.from_numpy(lengths).to(dev)
-        ia, ib = (torch.as_tensor(x, device=dev) for x in pairs)
-        return (packed[ia].t().contiguous(), packed[ib].t().contiguous(),
-                ln[ia].contiguous(), ln[ib].contiguous(), bases.shape[1])
+        to = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+        return (af.pack_reads_le(torch.from_numpy(bases).to(dev)), to(pairs[0]),
+                to(pairs[1]), to(lengths)), bases.shape[1]
 
     with Stage("kernels against their plain versions"):
         a1, kw1, p1n = captured["phase1"]
         a2, kw2, p2n = captured["phase2"]
         n = min(N_CHECK, p1n)
-        check_phase1(*(t[..., :n].contiguous() for t in a1[:3]), kw1["la_max"], kw1["w"],
-                     "real pairs", ulen=READ_LEN)
+        check_phase1(pair_slice(a1, n), kw1["la_max"], kw1["w"], "real pairs", ulen=READ_LEN)
         log(f"  equal: phase 1 on the first {n} pairs of the main path's largest "
             f"launch, also with ulen={READ_LEN}")
         n2 = min(N_CHECK, p2n)
-        live = check_phase2(*(t[..., :n2].contiguous() for t in a2[:5]), kw2["la_max"],
-                            kw2["w"], "real pairs", ulen=READ_LEN)
+        live = check_phase2(pair_slice(a2, n2), kw2["la_max"], kw2["w"], "real pairs",
+                            ulen=READ_LEN)
         log(f"  equal: phase 2 on the first {n2} pairs of the main path's largest "
             f"launch (rows {kw2['la_max']}; live {live}), also with ulen={READ_LEN}")
         rng = np.random.RandomState(1)
         rnd = simulated_reads(4096, READ_LEN, coverage=COVERAGE, error_rate=0.02, seed=1)
         ia = rng.randint(0, 4096, 16384)
-        aw, bw, la, lb, lmax = batch(rnd, (ia, rng.randint(0, 4096, 16384)))
-        check(aw, bw, la, lb, lmax, 12, "random pairs")
-        aw, bw, la, lb, lmax = batch(rnd, (ia, np.clip(ia + rng.randint(-12, 13, 16384), 0, 4095)))
-        check(aw, bw, la, lb, lmax, 12, "near pairs, 2% errors", ulen=READ_LEN)
+        ops, lmax = batch(rnd, (ia, rng.randint(0, 4096, 16384)))
+        check(ops, lmax, 12, "random pairs")
+        ops, lmax = batch(rnd, (ia, np.clip(ia + rng.randint(-12, 13, 16384), 0, 4095)))
+        check(ops, lmax, 12, "near pairs, 2% errors", ulen=READ_LEN)
+        check(ops, lmax, 16, "near pairs, 2% errors", ulen=READ_LEN)
         mixed = [Sequence(q.id, q.seq[: rng.randint(40, 301)]) for q in
                  simulated_reads(2048, 300, coverage=40.0, error_rate=0.01, seed=2)]
         ia = rng.randint(0, 2048, 8192)
-        pairs = (ia, np.clip(ia + rng.randint(-6, 7, 8192), 0, 2047))
-        for w in (12, 20, 40, 70):
-            aw, bw, la, lb, lmax = batch(mixed, pairs)
-            check(aw, bw, la, lb, lmax, w, "mixed lengths 40..300 bp")
+        mixed_ops, mixed_lmax = batch(mixed, (ia, np.clip(ia + rng.randint(-6, 7, 8192), 0, 2047)))
+        for w in (12, 16) + OFF_PATH_WIDTHS:
+            check(mixed_ops, mixed_lmax, w, "mixed lengths 40..300 bp")
+        big = tuple(40000 if a == b else -50000 for a in range(4) for b in range(4))
+        kwb = dict(la_max=mixed_lmax, w=16, gO=s.gap_open, gE=s.gap_extend, cm_tuple=big)
+        if af.instance(1, w=16, rows=mixed_lmax, cm_tuple=big) != "general":
+            raise AssertionError("scores past 16 bits did not take the general instance")
+        compare("phase1", af.phase1_indexed(*mixed_ops, **kwb),
+                af.phase1_indexed_plain(*mixed_ops, **kwb), "scores past 16 bits")
+        log("  equal: phase 1, scores past 16 bits (general instance)")
 
-    with Stage("kernel timing at the main path's largest launches"):
+    with Stage("kernel timing at the main path's largest launches and the other "
+               "instances"):
         sms = props.multi_processor_count
         kernels = [kernel_entry(name, *captured[name], launches=launches[name],
                                 max_err=max_err[name], sms=sms, sm_mhz=sm_mhz)
                    for name in ("phase1", "phase2")]
+        # the capacity and general instances, off the main paths, on the
+        # mixed-length batch
+        for w in OFF_PATH_WIDTHS:
+            tag = "_" + af.instance(1, w=w, rows=mixed_lmax, cm_tuple=cm)
+            kw = dict(la_max=mixed_lmax, w=w, gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm)
+            p1 = af.phase1_indexed(*mixed_ops, **kw)
+            kernels.append(kernel_entry("phase1", mixed_ops, kw, 8192, launches=0,
+                                        max_err=max_err["phase1"], sms=sms, sm_mhz=sm_mhz,
+                                        tag=tag))
+            kernels.append(kernel_entry("phase2", phase2_ops(mixed_ops, p1, w),
+                                        dict(kw, zero_row=w // 2), 8192, launches=0,
+                                        max_err=max_err["phase2"], sms=sms, sm_mhz=sm_mhz,
+                                        tag=tag))
+
+    with Stage("wide rows: reads of 32,768 bp or more"):
+        kernels += wide_rows_phase(dev, sms, sm_mhz)
 
     # ---- 4. card against CPU ----
     with Stage("engine on the card against the CPU, 2,048 reads"):

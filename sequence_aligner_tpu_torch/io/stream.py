@@ -1,7 +1,11 @@
 """Streamed FASTA input: chunked scan and encode with O(chunk) host memory.
 
-Copied from ``sequence_aligner_tpu/io/stream.py`` in its pure-Python form
-(the JAX package's C++ mmap reader in ``native/`` is not ported):
+Port of ``sequence_aligner_tpu/io/stream.py`` in pure Python, with the
+semantics of the JAX engine's default reader, the C++ mmap reader in
+``native/fastio.cpp`` (not ported): the file must start with ``>``, a
+record starts at a ``>`` that begins a line, and a sequence line loses
+its newline and every carriage return but keeps any other byte (trailing
+blanks are bases, encoded as code 0):
 
   * ``fasta_scan``          — one cheap pass -> (n_reads, max_len);
   * ``iter_encoded_chunks`` — generator of ([m, l_max] int8 code matrix,
@@ -20,8 +24,14 @@ import numpy as np
 from sequence_aligner_tpu_torch.ops.encode import _LUT
 
 
+def _body(line: bytes) -> bytes:
+    """A sequence line without its newline and without any carriage return."""
+    return line.rstrip(b"\n").replace(b"\r", b"")
+
+
 def fasta_scan(path: str) -> tuple[int, int]:
-    """(n_reads, max_body_len) in one pass."""
+    """(n_reads, max_body_len) in one pass; raises ValueError on a file
+    that is empty or does not start with ``>``."""
     n = 0
     cur = 0
     mx = 0
@@ -34,7 +44,9 @@ def fasta_scan(path: str) -> tuple[int, int]:
             else:
                 if n == 0:
                     raise ValueError(f"Invalid Sequence File: {path}")
-                cur += len(line.strip())
+                cur += len(_body(line))
+    if n == 0:
+        raise ValueError(f"Invalid Sequence File: {path}")
     return n, max(mx, cur)
 
 
@@ -62,7 +74,7 @@ def iter_encoded_chunks(
             else:
                 if m < 0:
                     raise ValueError(f"Invalid Sequence File: {path}")
-                body = np.frombuffer(line.strip(), dtype=np.uint8)
+                body = np.frombuffer(_body(line), dtype=np.uint8)
                 take = body[: max(l_max - cur, 0)]
                 bases[m, cur : cur + len(take)] = _LUT[take]
                 cur += len(body)

@@ -27,6 +27,7 @@ results stay on the device until the valid records are fetched once.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import math
@@ -42,7 +43,7 @@ from sequence_aligner_tpu_torch.device import resolve_device
 from sequence_aligner_tpu_torch.io.fasta import read_fasta
 from sequence_aligner_tpu_torch.io.stream import fasta_scan, iter_encoded_chunks
 from sequence_aligner_tpu_torch.ops.align_fused import (
-    pack_reads_le, phase1, phase2, phase2_results,
+    check_pair_indices, pack_reads_le, phase1_indexed, phase2_indexed, phase2_results,
 )
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
 from sequence_aligner_tpu_torch.ops.kmer import kmer_scan
@@ -108,12 +109,19 @@ def _dove_tiers(la_max: int, width: int, min_overlap: int, min_identity: float):
 def _plan_tiers(counts, lo0: int, la_max: int, *, batch: int = 1 << 20,
                 max_tiers: int = 5, over_rows: int = 31):
     """Work-optimal contiguous partition of dove lengths (lo0, la_max]
-    into <= max_tiers (lo, hi] tiers (copied from the JAX engine): a
-    tier's cost is its padded pair count times (hi + 1 + over_rows), tier
-    bounds on multiples of 8.  Any partition gives the same records."""
+    into <= max_tiers (lo, hi] tiers (the JAX engine's planner, same
+    result): a tier's cost is its padded pair count times
+    (hi + 1 + over_rows), tier bounds on multiples of 8.  Any partition
+    gives the same records.
+
+    Two shortcuts keep long reads (thousands of edges) cheap without
+    changing the result: pair counts come from a prefix sum, and an edge
+    with no pair since the previous edge is never tried, as it cannot
+    strictly beat that edge (the same pairs above it, a higher bound)."""
+    cum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)]).tolist()
 
     def seg_n(a: int, b: int) -> int:  # pairs with dlen in (a, b]
-        return int(counts[a + 2 : b + 2].sum())
+        return cum[b + 2] - cum[a + 2] if b > a else 0
 
     def padded(n: int) -> int:
         b = _pow2_at_least(min(batch, _pow2_at_least(n, 1024)), 128)
@@ -123,6 +131,8 @@ def _plan_tiers(counts, lo0: int, la_max: int, *, batch: int = 1 << 20,
         return padded(n) * (hi + 1 + over_rows) if n else 0
 
     edges = [e for e in range(((lo0 // 8) + 1) * 8, la_max, 8) if e > lo0]
+    # edges with a pair since the previous edge
+    fresh = [e for e0, e in zip(edges, edges[1:]) if seg_n(e0, e)]
     memo = {}
 
     def solve(lo: int, k: int):
@@ -136,9 +146,10 @@ def _plan_tiers(counts, lo0: int, la_max: int, *, batch: int = 1 << 20,
         if key in memo:
             return memo[key]
         r = base
-        for e in edges:
-            if e <= lo:
-                continue
+        t = bisect.bisect_right(edges, lo)
+        tries = edges[t : t + 1] + fresh[bisect.bisect_right(fresh, edges[t]) :] \
+            if t < len(edges) else []
+        for e in tries:
             n1 = seg_n(lo, e)
             c2, t2 = solve(e, k - 1)
             c1 = cost(n1, e)
@@ -283,21 +294,24 @@ class Overlapper:
         cm = s.cm_tuple()
         real = lengths[lengths > 0]
         ulen = int(real[0]) if real.size and bool((real == real[0]).all()) else 0
-        lead = lead_d[:n_pairs].long()
-        trail = trail_d[:n_pairs].long()
-        pair_w = torch.from_numpy(wtab_host).to(dev)[lengths_d[lead - 1].long()]
+        # the kernels read the pairs' rows of `packed` by index: only the
+        # per-pair indices and lengths are gathered here, and the indices are
+        # checked once
+        a_all = (lead_d[:n_pairs] - 1).int()
+        b_all = (trail_d[:n_pairs] - 1).int()
+        if dev.type == "cuda":
+            check_pair_indices(a_all, b_all, packed.shape[0])
+        pair_w = torch.from_numpy(wtab_host).to(dev)[lengths_d[a_all.long()].long()]
+        # a width group's rows: its longest read (an A of the group is one of
+        # them), so one long read sends only its own group to a wider instance
+        # (lengths ascending: the longest of each width is written last)
+        rows_w = {int(wtab_host[l]): int(l) for l in np.flatnonzero(np.bincount(real))}
         bs = self.batch_size
-        p1kw = dict(gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm, ulen=ulen)
+        p1kw = dict(gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm, ulen=ulen,
+                    indices_checked=True)
         vkw = dict(min_identity=s.min_identity, min_overlap=s.min_overlap,
                    max_ignore=s.max_ignore)
         found = []
-
-        def operands(pos, n_words_b=None):
-            """Word-major packed A and B and their lengths for pair positions."""
-            a_idx, b_idx = lead[pos] - 1, trail[pos] - 1
-            bw = packed[b_idx] if n_words_b is None else packed[b_idx, :n_words_b]
-            return (packed[a_idx].t().contiguous(), bw.t().contiguous(),
-                    lengths_d[a_idx], lengths_d[b_idx])
 
         for w in widths:
             sel = (torch.arange(n_pairs, device=dev) if len(widths) == 1
@@ -305,11 +319,14 @@ class Overlapper:
             cnt = int(sel.numel())
             if cnt == 0:
                 continue
+            a_w, b_w = a_all[sel], b_all[sel]
             # pass A: phase 1 on every pair; dove length, -1 for duds
             dlen = torch.empty(cnt, dtype=torch.int32, device=dev)
             for lo in range(0, cnt, bs):
-                aw, bw, a_len, b_len = operands(sel[lo : lo + bs], (w + 15) // 16)
-                best1, bi, bj, fi_c, fj_c = phase1(aw, bw, a_len, la_max=la_max, w=w, **p1kw)
+                a_idx, b_idx = a_w[lo : lo + bs], b_w[lo : lo + bs]
+                best1, bi, bj, fi_c, fj_c = phase1_indexed(
+                    packed, a_idx, b_idx, lengths_d, la_max=rows_w[w], w=w, **p1kw)
+                a_len, b_len = lengths_d[a_idx.long()], lengths_d[b_idx.long()]
                 act1 = (best1 > 0) & (b_len >= w)  # the glue's dud rule
                 fi = torch.where(act1, fi_c, bi)
                 fj = torch.where(act1, fj_c, bj)
@@ -335,16 +352,17 @@ class Overlapper:
                 self.stats.dp_cells += tcnt * (thi + 1) * (w + 1)
                 for lo in range(toff, toff + tcnt, bs):
                     opos = order[lo : min(lo + bs, toff + tcnt)]
-                    pos = sel[opos]
-                    aw, bw, a_len, b_len = operands(pos)
+                    a_idx, b_idx = a_w[opos], b_w[opos]
+                    a_len, b_len = lengths_d[a_idx.long()], lengths_d[b_idx.long()]
                     dl = dlen[opos]
-                    ds = (a_len - dl).contiguous()
-                    p2 = phase2(aw, bw, ds, dl.contiguous(), b_len, la_max=thi, w=w,
-                                zero_row=w // 2, **p1kw)
+                    ds = a_len - dl
+                    p2 = phase2_indexed(packed, a_idx, b_idx, ds, dl, lengths_d,
+                                        la_max=min(thi, rows_w[w]), w=w, zero_row=w // 2,
+                                        **p1kw)
                     res = phase2_results(p2, ds, a_len, b_len, width=w, **vkw)
                     ahg, bhg, valid = res["ahg"], res["bhg"], res["valid"]
                     found.append(torch.stack(
-                        [lead[pos].int(), trail[pos].int(), ahg, bhg], dim=1)[valid])
+                        [a_idx + 1, b_idx + 1, ahg, bhg], dim=1)[valid])
                 toff += tcnt
         self.stats.n_alignments = n_pairs
         rows = torch.cat(found).cpu().numpy() if found else np.zeros((0, 4), np.int32)

@@ -84,8 +84,8 @@ _TYPES = {"a": "int8_t", "s": "int16_t", "i": "int32_t",
 
 
 def _demangle_short(name: str) -> str:
-    """``kernel<args>`` for a templated kernel's mangled name, with integer
-    and integer-type template arguments; the anonymous namespace
+    """``kernel<args>`` for a templated kernel's mangled name, with integer,
+    bool and integer-type template arguments; the anonymous namespace
     (``_ZN41_GLOBAL__N__..._9_probes_cu_...17pack_probe_kernelILi1EEE...``)
     is dropped."""
     m = re.match(r"_ZN?", name)
@@ -104,8 +104,9 @@ def _demangle_short(name: str) -> str:
     rest = name[i:]
     if not rest.startswith("I"):
         return base
-    args = [lit or _TYPES[typ] for lit, typ in
-            re.findall(r"Li(-?\d+)E|([ashtij])", rest[1 : rest.find("EE") + 1])]
+    args = [lit or ("true" if flag == "1" else "false") if lit or flag else _TYPES[typ]
+            for lit, flag, typ in
+            re.findall(r"Li(-?\d+)E|Lb([01])E|([ashtij])", rest[1 : rest.find("EE") + 1])]
     return f"{base}<{', '.join(args)}>"
 
 

@@ -145,24 +145,31 @@ def test_glue_matches_pallas_interpret():
         assert np.array_equal(got[k].numpy(), np.asarray(want[k])), k
 
 
-@pytest.mark.parametrize("name,ulen", [
-    ("random", 0), ("random", 100), ("shredded", 0), ("shredded", 100), ("mixed", 0),
-])
-def test_phases_match_pallas_kernels(name, ulen):
-    """Raw outputs of both plain phases against the Pallas kernels under the
-    interpreter, including the kernels' uniform-length (ulen) variants and
-    dove starts on word boundaries (ds % 16 == 0), at 0 and at |A|."""
-    bases, lengths, a_idx, b_idx, width = _case(name)
-    assert not ulen or (lengths == ulen).all()  # ulen is for uniform batches
-    a_idx, b_idx = a_idx[:128], b_idx[:128]
-    p = len(a_idx)
+def _indexed(bases, lengths, a_idx, b_idx):
+    """The engine's operands: the packed read table, pair rows, lengths."""
+    return (af.pack_reads_le(torch.from_numpy(bases)),
+            torch.from_numpy(a_idx.astype(np.int32)), torch.from_numpy(b_idx.astype(np.int32)),
+            torch.from_numpy(lengths.astype(np.int32)))
+
+
+def _dove_starts(a_len, la_max, seed, *, clamp):
+    """Dove starts in [0, la_max] with word boundaries (ds % 16 == 0), 0 and
+    la_max among them; ``clamp``: cut to |A| (else a start past |A| gives a
+    negative dove length)."""
+    rng = np.random.RandomState(seed)
+    ds = rng.randint(0, la_max + 1, len(a_len)).astype(np.int32)
+    ds[:8] = [0, 16, 32, 48, 64, la_max, 15, 17]
+    return np.minimum(ds, a_len).astype(np.int32) if clamp else ds
+
+
+def _pallas_and_indexed(bases, lengths, a_idx, b_idx, width, ulen, ds_seed, *, clamp):
+    """Both phases through the Pallas kernels under the interpreter and
+    through the port's indexed wrappers (CPU: their plain versions)."""
     la_max = bases.shape[1]
     aw = j_pack(jnp.asarray(bases[a_idx])).T
     bw = j_pack(jnp.asarray(bases[b_idx])).T
     a_len, b_len = lengths[a_idx], lengths[b_idx]
-    rng = np.random.RandomState(p)
-    ds = rng.randint(0, la_max + 1, p).astype(np.int32)
-    ds[:8] = [0, 16, 32, 48, 64, la_max, 15, 17]
+    ds = _dove_starts(a_len, la_max, ds_seed, clamp=clamp)
     dl = (a_len - ds).astype(np.int32)
     common = dict(w=width, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM, ulen=ulen)
     j1 = phase1_fused_packed(aw, bw, jnp.asarray(a_len), la_max=la_max, pblk=128,
@@ -170,16 +177,73 @@ def test_phases_match_pallas_kernels(name, ulen):
     j2 = phase2_fused_packed(aw, bw, jnp.asarray(ds), jnp.asarray(dl), jnp.asarray(b_len),
                              la_max=la_max, zero_row=width // 2, pblk=128,
                              interpret=True, **common)
-    t_aw = torch.from_numpy(np.array(aw))
-    t_bw = torch.from_numpy(np.array(bw))
-    t1 = af.phase1(t_aw, t_bw, torch.from_numpy(a_len), la_max=la_max, **common)
-    t2 = af.phase2(t_aw, t_bw, torch.from_numpy(ds), torch.from_numpy(dl),
-                   torch.from_numpy(b_len), la_max=la_max, zero_row=width // 2, **common)
+    packed, ia, ib, ln = _indexed(bases, lengths, a_idx, b_idx)
+    t1 = af.phase1_indexed(packed, ia, ib, ln, la_max=la_max, **common)
+    t2 = af.phase2_indexed(packed, ia, ib, torch.from_numpy(ds), torch.from_numpy(dl), ln,
+                           la_max=la_max, zero_row=width // 2, **common)
     for i, (w_, g) in enumerate(zip(j1, t1)):
         assert np.array_equal(g.numpy(), np.asarray(w_)), ("phase1", i)
     for i, (w_, g) in enumerate(zip(j2, t2)):
         assert np.array_equal(g.numpy(), np.asarray(w_)), ("phase2", i)
+    return j2
+
+
+@pytest.mark.parametrize("name,ulen", [
+    ("random", 0), ("random", 100), ("shredded", 0), ("shredded", 100), ("mixed", 0),
+])
+def test_phases_match_pallas_kernels(name, ulen):
+    """Raw outputs of both phases' indexed wrappers (their plain versions on
+    the CPU) against the Pallas kernels under the interpreter, including the
+    kernels' uniform-length (ulen) variants and dove starts on word
+    boundaries (ds % 16 == 0), at 0, at |A| and past it (negative dove
+    lengths)."""
+    bases, lengths, a_idx, b_idx, width = _case(name)
+    assert not ulen or (lengths == ulen).all()  # ulen is for uniform batches
+    a_idx, b_idx = a_idx[:128], b_idx[:128]
+    j2 = _pallas_and_indexed(bases, lengths, a_idx, b_idx, width, ulen, len(a_idx),
+                             clamp=False)
     assert (np.asarray(j2[0]) > 0).any() and (np.asarray(j2[0]) == 0).any()
+
+
+@pytest.mark.parametrize("width,kind,ulen", [
+    (12, "uniform", 100),  # the register instance of the AlignSettings() defaults
+    (16, "mixed", 0),      # amos_parity(kmer_size=16)'s instance
+    (17, "uniform", 0),    # phase 1 in the capacity instance, phase 2 past 17 columns
+    (31, "mixed", 0),
+    (33, "uniform", 100),
+    (70, "mixed", 0),      # the general (scratch) instance
+])
+def test_indexed_plain_versions_match_gather_and_pallas(width, kind, ulen):
+    """The indexed wrappers' plain versions against the gather-then-plain
+    path (phase*_plain on word-major operands) and the Pallas kernels under
+    the interpreter, at the widths the kernel instances split on."""
+    rng = np.random.RandomState(width)
+    if kind == "uniform":
+        seqs = j_sim(48, 100, coverage=12.0, error_rate=0.01, seed=width)
+    else:
+        base = j_sim(48, 150, coverage=12.0, error_rate=0.01, seed=width)
+        seqs = [JSeq(q.id, q.seq[: int(rng.randint(40, 151))]) for q in base]
+    bases, lengths = j_encode(seqs)
+    pairs = [(i, i + d) for i in range(43) for d in (1, 2, 3)][:128]  # Pallas blocks of 128
+    a_idx = np.asarray([a for a, _ in pairs])
+    b_idx = np.asarray([b for _, b in pairs])
+    j2 = _pallas_and_indexed(bases, lengths, a_idx, b_idx, width, ulen, width, clamp=True)
+    # gather, then the plain versions on [words, pairs] operands
+    packed, ia, ib, ln = _indexed(bases, lengths, a_idx, b_idx)
+    aw_t, bw_t = packed[ia.long()].t().contiguous(), packed[ib.long()].t().contiguous()
+    la_max = bases.shape[1]
+    common = dict(w=width, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM, ulen=ulen)
+    g1 = af.phase1_plain(aw_t, bw_t, ln[ia.long()], la_max=la_max, **common)
+    i1 = af.phase1_indexed(packed, ia, ib, ln, la_max=la_max, **common)
+    assert all(torch.equal(a, b) for a, b in zip(g1, i1))
+    ds = torch.from_numpy(_dove_starts(lengths[a_idx], la_max, width, clamp=True))
+    dl = ln[ia.long()] - ds
+    g2 = af.phase2_plain(aw_t, bw_t, ds, dl, ln[ib.long()], la_max=la_max,
+                         zero_row=width // 2, **common)
+    i2 = af.phase2_indexed(packed, ia, ib, ds, dl, ln, la_max=la_max, zero_row=width // 2,
+                           **common)
+    assert all(torch.equal(a, b) for a, b in zip(g2, i2))
+    assert (np.asarray(j2[0]) > 0).any()
 
 
 def test_pack_reads_le_matches():
@@ -193,22 +257,24 @@ def test_pack_reads_le_matches():
 
 def test_wrappers_check_inputs_and_count_only_kernel_launches():
     p, w = 8, 12
-    aw = torch.zeros((7, p), dtype=torch.int32)
-    bw = torch.zeros((7, p), dtype=torch.int32)
+    packed = torch.zeros((p, 7), dtype=torch.int32)
+    idx = torch.arange(p, dtype=torch.int32)
     n = torch.full((p,), 100, dtype=torch.int32)
     kw = dict(la_max=100, w=w, gO=-200, gE=-20, cm_tuple=CM)
     before = (af.phase1_launches, af.phase2_launches)
-    af.phase1(aw, bw, n, **kw)
-    af.phase2(aw, bw, n * 0, n, n, zero_row=w // 2, **kw)
+    af.phase1_indexed(packed, idx, idx, n, **kw)
+    af.phase2_indexed(packed, idx, idx, n * 0, n, n, zero_row=w // 2, **kw)
     assert (af.phase1_launches, af.phase2_launches) == before  # CPU: plain versions
     with pytest.raises(TypeError, match="int32"):
-        af.phase1(aw.long(), bw, n, **kw)
+        af.phase1_indexed(packed.long(), idx, idx, n, **kw)
     with pytest.raises(ValueError, match="shape"):
-        af.phase1(aw, bw[:, :4], n, **kw)
+        af.phase1_indexed(packed, idx, idx[:4], n, **kw)
     with pytest.raises(ValueError, match="contiguous"):
-        af.phase1(torch.zeros((p, 7), dtype=torch.int32).t(), bw, n, **kw)
+        af.phase1_indexed(torch.zeros((7, p), dtype=torch.int32).t(), idx, idx, n, **kw)
     with pytest.raises(ValueError, match="shape"):
-        af.phase2(aw, bw, n[:4], n, n, zero_row=w // 2, **kw)
+        af.phase2_indexed(packed, idx, idx, n[:4], n, n, zero_row=w // 2, **kw)
+    with pytest.raises(ValueError, match="shape"):  # one length a read
+        af.phase1_indexed(packed, idx, idx, n[:4], **kw)
 
 
 def test_sass_mix_counts_the_row_loop():

@@ -41,6 +41,7 @@ def cuda():
 
 
 def _batch(dev, n_pairs, length, *, mixed=False, seed=0):
+    """(packed read table, a_idx, b_idx, lengths, la_max) on ``dev``."""
     rng = np.random.RandomState(seed)
     seqs = simulated_reads(512, length, coverage=20.0, error_rate=0.01, seed=seed)
     if mixed:
@@ -49,10 +50,8 @@ def _batch(dev, n_pairs, length, *, mixed=False, seed=0):
     ia = rng.randint(0, len(seqs), n_pairs)
     ib = np.clip(ia + rng.randint(-8, 9, n_pairs), 0, len(seqs) - 1)
     packed = af.pack_reads_le(torch.from_numpy(bases).to(dev))
-    ln = torch.from_numpy(lengths).to(dev)
-    ia, ib = torch.from_numpy(ia).to(dev), torch.from_numpy(ib).to(dev)
-    return (packed[ia].t().contiguous(), packed[ib].t().contiguous(),
-            ln[ia].contiguous(), ln[ib].contiguous(), bases.shape[1])
+    to = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    return packed, to(ia), to(ib), to(lengths), bases.shape[1]
 
 
 def _assert_equal(got, want, what):
@@ -60,47 +59,124 @@ def _assert_equal(got, want, what):
         assert torch.equal(g, w), (what, i)
 
 
-@pytest.mark.parametrize("w", [12, 20, 40, 70])  # register capacities 16/32/64, scratch
-@pytest.mark.parametrize("mixed", [False, True])
-def test_kernels_equal_plain_versions(cuda, w, mixed):
-    aw, bw, la, lb, la_max = _batch(cuda, 3000, 150, mixed=mixed, seed=w)
-    kw = dict(la_max=la_max, w=w, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM)
+def _both_phases(packed, ia, ib, ln, kw):
+    """Both kernels against their plain versions, phase 2 from phase 1's
+    dove anchors; returns phase 2's outputs."""
     n1, n2 = af.phase1_launches, af.phase2_launches
-    k1 = af.phase1(aw, bw, la, **kw)
+    k1 = af.phase1_indexed(packed, ia, ib, ln, **kw)
     torch.cuda.synchronize()
-    p1 = af.phase1_plain(aw, bw, la, **kw)
+    p1 = af.phase1_indexed_plain(packed, ia, ib, ln, **kw)
     _assert_equal(k1, p1, "phase1")
-    ds = torch.where((p1[0] > 0) & (lb >= w), p1[3], p1[1]).contiguous()
-    dl = (la - ds).contiguous()
-    kw2 = dict(kw, zero_row=w // 2)
-    k2 = af.phase2(aw, bw, ds, dl, lb, **kw2)
+    a_len, b_len = ln[ia.long()], ln[ib.long()]
+    ds = torch.where((p1[0] > 0) & (b_len >= kw["w"]), p1[3], p1[1]).contiguous()
+    dl = (a_len - ds).contiguous()
+    kw2 = dict(kw, zero_row=kw["w"] // 2)
+    k2 = af.phase2_indexed(packed, ia, ib, ds, dl, ln, **kw2)
     torch.cuda.synchronize()
-    _assert_equal(k2, af.phase2_plain(aw, bw, ds, dl, lb, **kw2), "phase2")
+    _assert_equal(k2, af.phase2_indexed_plain(packed, ia, ib, ds, dl, ln, **kw2), "phase2")
     assert (af.phase1_launches, af.phase2_launches) == (n1 + 1, n2 + 1)
+    return k2
+
+
+# exact register instances (12, 16), the capacity instances of 24, 32, 48
+# and 64 columns (20, 31, 40, 60), the general scratch instance (70)
+@pytest.mark.parametrize("w,inst", [(12, "exact_a"), (16, "exact_b"), (20, "capacity24"),
+                                    (31, "capacity32"), (40, "capacity48"),
+                                    (60, "capacity64"), (70, "general")])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_kernels_equal_plain_versions(cuda, w, inst, mixed):
+    packed, ia, ib, ln, la_max = _batch(cuda, 3000, 150, mixed=mixed, seed=w)
+    kw = dict(la_max=la_max, w=w, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM)
+    assert af.instance(1, w=w, rows=la_max, cm_tuple=CM) == inst
+    k2 = _both_phases(packed, ia, ib, ln, kw)
     assert (k2[0] > 0).any()
 
 
 def test_uniform_length_variants_equal(cuda):
-    aw, bw, la, lb, la_max = _batch(cuda, 4096, 100, seed=3)
+    packed, ia, ib, ln, la_max = _batch(cuda, 4096, 100, seed=3)
     kw = dict(la_max=la_max, w=12, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM)
-    _assert_equal(af.phase1(aw, bw, la, ulen=100, **kw), af.phase1(aw, bw, la, **kw), "p1")
-    ds = (torch.arange(la.numel(), device=cuda, dtype=torch.int32) % 101).contiguous()
-    dl = (la - ds).contiguous()
+    _assert_equal(af.phase1_indexed(packed, ia, ib, ln, ulen=100, **kw),
+                  af.phase1_indexed(packed, ia, ib, ln, **kw), "p1")
+    # dove starts up to 116: past |A| = 100 the dove length is negative
+    ds = (torch.arange(ia.numel(), device=cuda, dtype=torch.int32) % 117).contiguous()
+    dl = (ln[ia.long()] - ds).contiguous()
     kw2 = dict(kw, zero_row=6)
-    _assert_equal(af.phase2(aw, bw, ds, dl, lb, ulen=100, **kw2),
-                  af.phase2(aw, bw, ds, dl, lb, **kw2), "p2")
+    k2 = af.phase2_indexed(packed, ia, ib, ds, dl, ln, **kw2)
+    _assert_equal(af.phase2_indexed(packed, ia, ib, ds, dl, ln, ulen=100, **kw2), k2, "p2")
     torch.cuda.synchronize()
+    _assert_equal(k2, af.phase2_indexed_plain(packed, ia, ib, ds, dl, ln, **kw2), "p2 plain")
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
-    aw, bw, la, lb, la_max = _batch(cuda, 64, 100)
+    packed, ia, ib, ln, la_max = _batch(cuda, 64, 100)
     kw = dict(la_max=la_max, w=12, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM)
     with pytest.raises(TypeError):
-        af.phase1(aw, bw, la.long(), **kw)
+        af.phase1_indexed(packed, ia, ib, ln.long(), **kw)
     with pytest.raises(ValueError):
-        af.phase1(aw, bw.cpu(), la, **kw)
+        af.phase1_indexed(packed, ia, ib.cpu(), ln, **kw)
     with pytest.raises(ValueError):
-        af.phase1(aw, bw, la, **dict(kw, la_max=1 << 15))
+        af.phase1_indexed(packed, ia, ib, ln, **dict(kw, la_max=af.MAX_ROWS_WIDE + 1))
+    with pytest.raises(IndexError):  # a row past the read table
+        af.phase1_indexed(packed, ia, torch.full_like(ib, packed.shape[0]), ln, **kw)
+
+
+def test_general_instance_takes_scores_past_16_bits(cuda):
+    cm = tuple(40000 if a == b else -50000 for a in range(4) for b in range(4))
+    packed, ia, ib, ln, la_max = _batch(cuda, 2000, 100, seed=11)
+    kw = dict(la_max=la_max, w=12, gO=S.gap_open, gE=S.gap_extend, cm_tuple=cm)
+    assert af.instance(1, w=12, rows=la_max, cm_tuple=cm) == "general"
+    assert (_both_phases(packed, ia, ib, ln, kw)[0] > 0).any()
+
+
+def _long_pair(dev):
+    """Two reads of 33,000 bp, the second starting 10,000 bp into the first."""
+    rng = np.random.RandomState(0)
+    g = "".join("ACTG"[i] for i in rng.randint(0, 4, 43000))
+    return [Sequence(1, g[:33000]), Sequence(2, g[10000:43000])]
+
+
+def test_wide_instance_equals_plain_versions(cuda):
+    """Rows past MAX_ROWS take the wide instance (32-bit row and count
+    fields); both directions of the 33,000 bp pair."""
+    bases, lengths = encode_reads(_long_pair(cuda))
+    packed = af.pack_reads_le(torch.from_numpy(bases).to(cuda))
+    ln = torch.from_numpy(lengths).to(cuda)
+    ia = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
+    s = AlignSettings(min_identity=0.9996, max_ignore=100000, max_collisions=10**8)
+    w = s.band_width(33000)
+    kw = dict(la_max=33000, w=w, gO=s.gap_open, gE=s.gap_extend, cm_tuple=s.cm_tuple())
+    assert af.instance(1, w=w, rows=33000, cm_tuple=s.cm_tuple()) == "wide"
+    k2 = _both_phases(packed, ia, 1 - ia, ln, kw)
+    assert int(k2[0].max()) > 0
+
+
+def test_long_reads_on_the_card_give_the_jax_record(cuda):
+    """The 33,000 bp pair through the engine on the card: the JAX engine's
+    (1, 2, 10000, 10000)."""
+    s = AlignSettings(min_identity=0.9996, max_ignore=100000, max_collisions=10**8)
+    got = Overlapper(s, device=cuda).run_arrays(_long_pair(cuda))
+    assert [a.tolist() for a in got] == [[1], [2], [10000], [10000]]
+
+
+def test_one_long_read_sends_only_its_own_group_wide(cuda):
+    """A 33,000 bp read among 100 bp reads: each width group's rows are its
+    own longest read, so the 100 bp reads' group keeps its exact register
+    instance while the long read's group takes the wide one, and the short
+    reads' records are those of a run without the long read."""
+    g = "".join("ACTG"[i] for i in np.random.RandomState(5).randint(0, 4, 36000))
+    short = [g[p : p + 100] for p in range(0, 35900, 30)]
+    reads = [Sequence(1, g[1000:34000])] + [Sequence(i + 2, q) for i, q in enumerate(short)]
+    af.instance_launches.clear()
+    got = Overlapper(S, device=cuda).run_arrays(reads)
+    by_instance = dict(af.instance_launches)
+    assert by_instance.get((1, "exact_a"), 0) >= 1, by_instance
+    assert by_instance.get((1, "wide"), 0) >= 1, by_instance
+    alone = Overlapper(S, device=cuda).run_arrays(
+        [Sequence(i + 1, q) for i, q in enumerate(short)])
+    keep = (got[0] > 1) & (got[1] > 1)  # pairs of two short reads, renumbered
+    assert keep.sum() > 0
+    assert np.array_equal(got[0][keep] - 1, alone[0]) and np.array_equal(got[1][keep] - 1, alone[1])
+    assert np.array_equal(got[2][keep], alone[2]) and np.array_equal(got[3][keep], alone[3])
 
 
 def test_engine_on_the_card_equals_the_cpu(cuda):

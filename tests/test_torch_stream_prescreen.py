@@ -169,3 +169,57 @@ def test_cli_prescreen_flag(tmp_path):
     want = tmp_path / "want.ovl"
     write_ovl_arrays(JOverlapper(JS, prescreen=True).run_arrays(str(path)), str(want))
     assert on.read_bytes() and on.read_bytes() == want.read_bytes() == off.read_bytes()
+
+
+def _write_with_line_ends(seqs, path, end):
+    """FASTA with two sequence lines a record, each ending in ``end``."""
+    with open(path, "wb") as f:
+        for i, q in enumerate(seqs):
+            h = len(q) // 2
+            f.write(f">r{i + 1}\n{q[:h]}{end}{q[h:]}{end}".encode())
+
+
+def test_stream_keeps_trailing_blanks_as_the_jax_engine(tmp_path):
+    """Sequence lines ending in two spaces: the blanks are bases (code 0) to
+    the JAX engine's reader, so the streamed records equal run_arrays and the
+    JAX run_stream_arrays."""
+    raw = [q.seq for q in simulated_reads(200, 100, coverage=20.0, error_rate=0.01, seed=1)]
+    path = str(tmp_path / "blanks.fasta")
+    _write_with_line_ends(raw, path, "  \n")
+    want = JOverlapper(JS).run_stream_arrays(path, chunk_reads=64)
+    got = Overlapper(S, device="cpu").run_stream_arrays(path, chunk_reads=64)
+    assert len(want[0]) > 0
+    _assert_arrays_equal(got, want)
+    _assert_arrays_equal(Overlapper(S, device="cpu").run_arrays(path), got)
+    assert fasta_scan(path) == (200, 104)
+
+
+@pytest.mark.parametrize("end", ["\r\n", " \t\n", "\r\r\n", "\n\n"])
+def test_stream_reader_agrees_with_read_fasta(tmp_path, end):
+    """fasta_scan and iter_encoded_chunks agree with read_fasta + encode on
+    CRLF ends, trailing blanks and tabs, repeated carriage returns and empty
+    lines: only newlines and carriage returns are dropped."""
+    from sequence_aligner_tpu_torch.io.fasta import read_fasta
+
+    raw = _mixed_reads()[:90]
+    path = str(tmp_path / "ends.fasta")
+    _write_with_line_ends(raw, path, end)
+    want_b, want_l = encode_reads(read_fasta(path))
+    n, l_max = fasta_scan(path)
+    assert (n, l_max) == want_b.shape
+    chunks = list(iter_encoded_chunks(path, 32, l_max))
+    assert np.array_equal(np.concatenate([c[0] for c in chunks]), want_b)
+    assert np.array_equal(np.concatenate([c[1] for c in chunks]), want_l)
+
+
+@pytest.mark.parametrize("body", ["", "ACGT\n>r\nACGT\n", "\n>r\nACGT\n"])
+def test_stream_rejects_invalid_files_as_the_jax_engine(tmp_path, body):
+    """An empty file, or one that does not start with '>', is an invalid
+    sequence file to both engines' run_stream_arrays and run_arrays."""
+    path = tmp_path / "bad.fasta"
+    path.write_text(body)
+    for run in (Overlapper(S, device="cpu").run_stream_arrays,
+                Overlapper(S, device="cpu").run_arrays,
+                JOverlapper(JS).run_stream_arrays):
+        with pytest.raises(ValueError, match="Invalid Sequence File"):
+            run(str(path))
