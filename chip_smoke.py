@@ -52,9 +52,12 @@ nvcc, then, each phase fatal on failure:
      on the card and on the CPU (equal arrays; the screen must drop
      candidates there);
   8. the probes (csrc/probes.cu): every pack-probe and dtype-probe variant
-     against its plain version on the card (equal, tolerance 0), then timed
-     at the TPU probes' P = 1024 and at P = 2^20, with SWAR / native and
-     int32 / int16.
+     against its plain version on the card (equal, tolerance 0) where the
+     probes' own inputs never go (SWAR with guard-set and guard-clear columns
+     in one warp, any 32-bit words, dtype values at the types' limits, int16
+     and int8 at an odd P and on a view one element into its storage), then
+     on the probes' inputs, timed at the TPU probes' P = 1024 and at P =
+     2^20, with SWAR / native and int32 / int16.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -484,6 +487,7 @@ def probe_phase(launches: dict) -> list[dict]:
                 "vmax2": "tools/pack_probe.py:80"}
     entries = []
     for mod, prefix in ((pp, "pack_probe"), (dp, "dtype_probe")):
+        log(f"  {prefix} equal to its plain version: " + "; ".join(mod.check_edges()))
         rows = mod.measure()
         for r in rows:
             lib = r["library_ms"]

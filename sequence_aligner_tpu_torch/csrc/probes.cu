@@ -1,5 +1,5 @@
-// Timing probes for Hopper (sm_90a): one thread per column, the column's
-// values in registers.
+// Timing probes for Hopper (sm_90a): one thread per column (or per two
+// columns in 16-bit lanes), the column's values in registers.
 //
 // Replace the two TPU probe kernels of tools/ and compute exactly what they
 // compute (the plain PyTorch versions in probes/pack_probe.py and
@@ -9,39 +9,65 @@
 //   pack_probe_kernel<kNative>  <- tools/pack_probe.py native_kernel (:59)
 //   pack_probe_kernel<kSwar>    <- tools/pack_probe.py swar_kernel (:80)
 //   pack_probe_kernel<kVmax2>   the card's own answer to that probe's question:
-//                               the SWAR words through the 16x2 SIMD max
-//   dtype_probe_kernel<T, U>    <- tools/dtype_probe.py kernel (:33), at
-//                               int32, int16 and int8
-//   dtype_probe_packed<LANES>   the same at int16 / int8 with 2 / 4 columns in
-//                               each 32-bit register (SIMD video intrinsics)
+//                               the SWAR words through the signed 16x2 max
+//   dtype_probe_kernel<Lane32>        <- tools/dtype_probe.py kernel (:33), int32
+//   dtype_probe_kernel<Lane16x2<0>>   the same at int16, two columns a register
+//   dtype_probe_kernel<Lane16x2<8>>   the same at int8, two columns a register,
+//                                     each value in its 16-bit lane's high byte
+//
+// What bounds them on this card: the integer instruction rate.  Each column
+// reads and writes a few dozen bytes and does tens of thousands of
+// operations on registers.  So the design is the fewest instructions a step,
+// from Hopper's DPX instructions: the 3-input max (VIMNMX3: __vimax3_s32,
+// __vimax3_s16x2, __vimax3_u16x2) and the add-max max(a + b, c) (VIADDMNMX:
+// __viaddmax_s32, __viaddmax_s16x2), beside the two-input max, which sm_90
+// compiles to one VIMNMX at 32 bits and at 16x2 (__vmaxs2; the CUDA 12.8
+// Math API has no __vimax_s16x2).
 //
 // pack probe: ROWS = 100 outer steps (a runtime loop, so nothing folds the
-//   chain), each of REPS = 30 unrolled repetitions of v = op(v, roll_up(v)) on
-//   a column of 13 rows, roll_up(v)[r] = v[(r + 1) % 13].  The rotate is a
-//   register renaming: rows update in place in ascending order, each reading
-//   its successor before that is overwritten, and the last row takes the saved
-//   first.  op is max (native); the guard-bit emulation swar_max of two 15-bit
-//   fields a word, bit for bit, with the subtraction in unsigned arithmetic
-//   because XLA's int32 wraps where signed overflow in C++ is undefined
-//   (SWAR); or __vmaxs2, the signed 16x2 max (vmax2), which on the probe's
-//   inputs (fields below 2^14, guard bits zero) gives the same words as SWAR.
+//   chain), each of REPS = 30 repetitions of v = op(v, roll_up(v)) on a column
+//   of 13 rows, roll_up(v)[r] = v[(r + 1) % 13], rows updated in place in
+//   ascending order.  op is associative and idempotent, so two repetitions are
+//   one v[r] = op(v[r], v[r + 1], v[r + 2]) (indices mod 13, the old v[0] and
+//   v[1] saved for the wrap): 15 fused steps of one VIMNMX3 a row.  native:
+//   int32 max.  vmax2: the signed 16x2 max.  SWAR: the guard-bit emulation
+//   swar_max of two 15-bit fields a word (bits 0-14, 16-30; guards 15, 31) is
+//   bit-exact on any word, and on two words with clear guard bits it is the
+//   per-field unsigned max, whose result has clear guard bits again.  One
+//   check a column at load (the OR of its 13 words against the guard bits)
+//   sends a guard-clear column through __vimax3_u16x2; a column with a guard
+//   bit set runs the emulation, unfused, with the subtraction in unsigned
+//   arithmetic because XLA's int32 wraps where signed overflow in C++ is
+//   undefined.
 // dtype probe: ITERS steps of xs = x shifted down one row (row 0 takes 0),
 //   m = max(x + 1, max(xs, y)), y2 = (m == x) ? y + 1 : m, x2 = max(m - 1, y2);
-//   output x + y.  Every add wraps in two's complement as XLA's does: done in
-//   the unsigned type of the same width and narrowed explicitly.  Rows update
-//   in descending order so each reads its predecessor's old x.  The packed
-//   forms hold 2 (int16) or 4 (int8) neighbouring columns in one register and
-//   use __vadd2/__vsub2/__vmaxs2/__vcmpeq2 (the ...4 byte forms), selects as
-//   (m & a) | (~m & b): the only way this card gives narrow types more
-//   throughput, which is what the TPU probe asked of the TPU.
+//   output x + y, every add wrapping in two's complement as XLA's does.  Rows
+//   update in descending order so each reads its predecessor's old x.  The
+//   general step is m = addmax(x, 1, max(xs, y)); y + 1; the select;
+//   x2 = addmax(m, -1, y2).  Where x + 1 does not wrap, m > x, so
+//   m == x needs x == MAX.  Hence the fast step: while every x and y of the
+//   thread (and the zero row) is at most M, k more steps keep them at most
+//   M + k, so for MAX - M steps no x reaches MAX, y2 = m and no add wraps:
+//   m = addmax(x, 1, max(xs, y)); x2 = addmax(m, -1, m); y2 = m, three
+//   instructions.  The thread checks that headroom (a VIMNMX3 reduction of its
+//   28 registers) and runs that many fast steps, or else a run of general
+//   steps; the path follows the values, both are exact.  16x2 lanes compute
+//   the select's mask without the emulated __vcmpeq2: the unsigned 16x2 min
+//   of m ^ x and the lane's one is 0 where m == x and one elsewhere, and one
+//   IMAD (on the FMA pipe, beside the ALU pipe's max and add-max) spreads it
+//   to a mask.  int8 values sit in the high byte of a 16-bit lane (low byte
+//   0): the lane's 16-bit wrap is then exactly int8's, and its signed order
+//   int8's, so int8 runs the int16 arithmetic with no fix-up (there is no 8x4
+//   DPX form); its y + 1 is a plain 32-bit add, whose carry can only reach
+//   the high lane's low byte, which the mask (high bytes only) drops.
 //
-// What bounds them on this card: integer instruction throughput.  Each
-// column reads and writes a few dozen bytes and does tens of thousands of
-// ALU operations on registers, so the bytes are negligible.  At the TPU probes' P = 1024
-// columns only 8 of 132 SMs get a block, so that size measures latency; the
-// probes' timing also runs a size that fills the card.
+// At the TPU probes' P = 1024 columns only 8 of 132 SMs get a block, so that
+// size measures latency; the probes' timing also runs a size that fills the
+// card.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,23 +76,37 @@ constexpr int kThreads = 128;
 constexpr int kPackRows = 13;   // COLS of tools/pack_probe.py
 constexpr int kPackReps = 30;   // REPS
 constexpr int kDtypeRows = 14;  // ROWS of tools/dtype_probe.py
+constexpr int kGeneralRun = 32;  // general steps between two headroom checks
+constexpr uint32_t kGuard = (1u << 15) | 0x80000000u;
+
+static_assert(kPackReps % 2 == 0, "two repetitions fuse into one 3-input max");
 
 enum { kNative = 0, kSwar = 1, kVmax2 = 2 };
 
 __device__ __forceinline__ uint32_t swar_max(uint32_t a, uint32_t b) {
-  const uint32_t guard = (1u << 15) | 0x80000000u;
-  const uint32_t diff = (a | guard) - b;  // wraps like XLA's int32 subtract
+  const uint32_t diff = (a | kGuard) - b;  // wraps like XLA's int32 subtract
   const uint32_t f0 = (diff >> 15) & 1u;
   const uint32_t f1 = (diff >> 31) & 1u;  // the JAX arithmetic shift, & 1
   const uint32_t mask = (f0 * 0x7FFFu) | ((f1 * 0x7FFFu) << 16);
   return b ^ ((a ^ b) & mask);
 }
 
+// max(a, b, c) in the variant's order: one VIMNMX3
 template <int MODE>
-__device__ __forceinline__ uint32_t pack_step(uint32_t a, uint32_t b) {
-  if (MODE == kNative) return (uint32_t)max((int32_t)a, (int32_t)b);
-  if (MODE == kSwar) return swar_max(a, b);
-  return __vmaxs2(a, b);
+__device__ __forceinline__ uint32_t max3(uint32_t a, uint32_t b, uint32_t c) {
+  if (MODE == kNative) return (uint32_t)__vimax3_s32((int)a, (int)b, (int)c);
+  if (MODE == kVmax2) return __vimax3_s16x2(a, b, c);
+  return __vimax3_u16x2(a, b, c);  // SWAR on guard-clear words
+}
+
+// two in-place ascending repetitions of v[r] = max(v[r], v[(r + 1) % 13])
+template <int MODE>
+__device__ __forceinline__ void fused_reps(uint32_t (&v)[kPackRows]) {
+  const uint32_t v0 = v[0], v1 = v[1];
+#pragma unroll
+  for (int r = 0; r < kPackRows - 2; ++r) v[r] = max3<MODE>(v[r], v[r + 1], v[r + 2]);
+  v[kPackRows - 2] = max3<MODE>(v[kPackRows - 2], v[kPackRows - 1], v0);
+  v[kPackRows - 1] = max3<MODE>(v[kPackRows - 1], v0, v1);
 }
 
 template <int MODE>
@@ -76,107 +116,180 @@ pack_probe_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, in
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= P) return;
   uint32_t v[kPackRows];
+  uint32_t any = 0;
 #pragma unroll
-  for (int r = 0; r < kPackRows; ++r) v[r] = x[(size_t)r * P + c];
-  for (int i = 0; i < rows; ++i) {
+  for (int r = 0; r < kPackRows; ++r) {
+    v[r] = x[(size_t)r * P + c];
+    any |= v[r];
+  }
+  if (MODE != kSwar || !(any & kGuard)) {
+    for (int i = 0; i < rows; ++i) {
 #pragma unroll
-    for (int k = 0; k < kPackReps; ++k) {
-      const uint32_t v0 = v[0];
+      for (int k = 0; k < kPackReps / 2; ++k) fused_reps<MODE>(v);
+    }
+  } else {  // a guard bit set: the emulation, one repetition at a time
+    for (int i = 0; i < rows; ++i) {
 #pragma unroll
-      for (int r = 0; r < kPackRows - 1; ++r) v[r] = pack_step<MODE>(v[r], v[r + 1]);
-      v[kPackRows - 1] = pack_step<MODE>(v[kPackRows - 1], v0);
+      for (int k = 0; k < kPackReps; ++k) {
+        const uint32_t v0 = v[0];
+#pragma unroll
+        for (int r = 0; r < kPackRows - 1; ++r) v[r] = swar_max(v[r], v[r + 1]);
+        v[kPackRows - 1] = swar_max(v[kPackRows - 1], v0);
+      }
     }
   }
 #pragma unroll
   for (int r = 0; r < kPackRows; ++r) out[(size_t)r * P + c] = v[r];
 }
 
-// a + b in T with two's-complement wrap: added in U (the unsigned type of
-// T's width), narrowed explicitly
-template <typename T, typename U>
-__device__ __forceinline__ T wrap_add(T a, T b) {
-  return (T)(U)((U)a + (U)b);
-}
-
-template <typename T>
-__device__ __forceinline__ T tmax(T a, T b) {
-  return a > b ? a : b;
-}
-
-template <typename T, typename U>
-__global__ void __launch_bounds__(kThreads)
-dtype_probe_kernel(const T* __restrict__ x, const T* __restrict__ y, T* __restrict__ out,
-                   int P, int iters) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= P) return;
-  const T one = 1, minus_one = (T)(U)~(U)0;
-  T xv[kDtypeRows], yv[kDtypeRows];
-#pragma unroll
-  for (int r = 0; r < kDtypeRows; ++r) {
-    xv[r] = x[(size_t)r * P + c];
-    yv[r] = y[(size_t)r * P + c];
+// One int32 column a register.
+struct Lane32 {
+  using T = int32_t;
+  static constexpr int kColumns = 1;
+  static constexpr int kMax = INT32_MAX;
+  static constexpr uint32_t kOne = 1u, kMinusOne = ~0u, kMin = 0x80000000u;
+  static __device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
+    return (uint32_t)max((int32_t)a, (int32_t)b);
   }
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int r = kDtypeRows - 1; r >= 0; --r) {
-      const T xs = r ? xv[r - 1] : (T)0;
-      const T m = tmax(wrap_add<T, U>(xv[r], one), tmax(xs, yv[r]));
-      const T y2 = (m == xv[r]) ? wrap_add<T, U>(yv[r], one) : m;
-      xv[r] = tmax(wrap_add<T, U>(m, minus_one), y2);
-      yv[r] = y2;
-    }
+  static __device__ __forceinline__ uint32_t vmax3(uint32_t a, uint32_t b, uint32_t c) {
+    return (uint32_t)__vimax3_s32((int32_t)a, (int32_t)b, (int32_t)c);
   }
+  static __device__ __forceinline__ uint32_t addmax(uint32_t a, uint32_t b, uint32_t c) {
+    return (uint32_t)__viaddmax_s32((int32_t)a, (int32_t)b, (int32_t)c);
+  }
+  static __device__ __forceinline__ uint32_t inc(uint32_t y) { return y + 1u; }
+  // (m == x) ? a : b
+  static __device__ __forceinline__ uint32_t select_eq(uint32_t m, uint32_t x, uint32_t a,
+                                                       uint32_t b) {
+    return m == x ? a : b;
+  }
+  static __device__ __forceinline__ int top(uint32_t w) { return (int32_t)w; }
+  static __device__ __forceinline__ uint32_t load(const T* p, bool) { return (uint32_t)*p; }
+  static __device__ __forceinline__ void store(T* p, uint32_t w, bool) { *p = (T)w; }
+};
+
+// Two columns a register in signed 16-bit lanes; SHIFT 0 holds int16 values,
+// SHIFT 8 int8 values in the lanes' high bytes.
+template <int SHIFT>
+struct Lane16x2 {
+  using T = typename std::conditional<SHIFT == 0, int16_t, int8_t>::type;
+  static constexpr int kColumns = 2;
+  static constexpr int kMax = 0x7FFF >> SHIFT;
+  static constexpr uint32_t kOne = 0x00010001u << SHIFT;
+  static constexpr uint32_t kMinusOne = ((0x10000u - (1u << SHIFT)) & 0xFFFFu) * 0x10001u;
+  static constexpr uint32_t kMin = 0x80008000u;
+  // kLaneMask: every lane's value bits (the whole lane, or its high byte at
+  // SHIFT 8).  A lane's one times kSpread is minus that lane's value bits,
+  // so ne * kSpread + kLaneMask clears them in each lane where ne is one.
+  static constexpr uint32_t kLaneMask = ((0xFFFFu << SHIFT) & 0xFFFFu) * 0x10001u;
+  static constexpr uint32_t kSpread = 0u - (0xFFFFu >> SHIFT);
+  static __device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
+    return __vmaxs2(a, b);
+  }
+  static __device__ __forceinline__ uint32_t vmax3(uint32_t a, uint32_t b, uint32_t c) {
+    return __vimax3_s16x2(a, b, c);
+  }
+  static __device__ __forceinline__ uint32_t addmax(uint32_t a, uint32_t b, uint32_t c) {
+    return __viaddmax_s16x2(a, b, c);
+  }
+  // y + 1 in each lane; at SHIFT 8 the low bytes may be left nonzero, for
+  // select_eq to drop
+  static __device__ __forceinline__ uint32_t inc(uint32_t y) {
+    return SHIFT ? y + kOne : __viaddmax_s16x2(y, kOne, kMin);
+  }
+  // (m == x) ? a : b lane by lane, bytes 0 and 2 from b at SHIFT 8
+  static __device__ __forceinline__ uint32_t select_eq(uint32_t m, uint32_t x, uint32_t a,
+                                                       uint32_t b) {
+    const uint32_t ne = __vminu2(m ^ x, kOne);  // a lane's one where m != x, else 0
+    const uint32_t eq = ne * kSpread + kLaneMask;
+    return (a & eq) | (b & ~eq);
+  }
+  static __device__ __forceinline__ int top(uint32_t w) {
+    return max((int)(int16_t)w, (int)(int16_t)(w >> 16)) >> SHIFT;
+  }
+  // columns p[0] and, where `two`, p[1] (an odd P's last thread has one)
+  static __device__ __forceinline__ uint32_t load(const T* p, bool two) {
+    using U = typename std::make_unsigned<T>::type;
+    const uint32_t lo = (U)p[0], hi = two ? (U)p[1] : 0u;
+    return (lo | hi << 16) << SHIFT;
+  }
+  static __device__ __forceinline__ void store(T* p, uint32_t w, bool two) {
+    p[0] = (T)(w >> SHIFT);
+    if (two) p[1] = (T)(w >> (16 + SHIFT));
+  }
+};
+
+// Steps the thread can take with no x reaching the type's maximum: the
+// largest value of its registers and the zero row is M, and k steps keep
+// every value at most M + k.
+template <class L>
+__device__ __forceinline__ int headroom(const uint32_t (&xv)[kDtypeRows],
+                                        const uint32_t (&yv)[kDtypeRows]) {
+  uint32_t acc = 0;
 #pragma unroll
-  for (int r = 0; r < kDtypeRows; ++r) out[(size_t)r * P + c] = wrap_add<T, U>(xv[r], yv[r]);
+  for (int r = 0; r < kDtypeRows; ++r) acc = L::vmax3(acc, xv[r], yv[r]);
+  return L::kMax - L::top(acc);
 }
 
-template <int LANES>
-__device__ __forceinline__ uint32_t vadd(uint32_t a, uint32_t b) {
-  return LANES == 2 ? __vadd2(a, b) : __vadd4(a, b);
-}
-template <int LANES>
-__device__ __forceinline__ uint32_t vsub(uint32_t a, uint32_t b) {
-  return LANES == 2 ? __vsub2(a, b) : __vsub4(a, b);
-}
-template <int LANES>
-__device__ __forceinline__ uint32_t vmax(uint32_t a, uint32_t b) {
-  return LANES == 2 ? __vmaxs2(a, b) : __vmaxs4(a, b);
-}
-template <int LANES>
-__device__ __forceinline__ uint32_t vcmpeq(uint32_t a, uint32_t b) {
-  return LANES == 2 ? __vcmpeq2(a, b) : __vcmpeq4(a, b);  // all-ones lanes where equal
-}
-
-// W 32-bit words a row, each holding LANES neighbouring columns
-template <int LANES>
+template <class L>
 __global__ void __launch_bounds__(kThreads)
-dtype_probe_packed(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                   uint32_t* __restrict__ out, int W, int iters) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= W) return;
-  const uint32_t one = LANES == 2 ? 0x00010001u : 0x01010101u;
+dtype_probe_kernel(const typename L::T* __restrict__ x, const typename L::T* __restrict__ y,
+                   typename L::T* __restrict__ out, int P, int iters) {
+  const int col = (blockIdx.x * kThreads + threadIdx.x) * L::kColumns;
+  if (col >= P) return;
+  const bool two = col + 1 < P;
   uint32_t xv[kDtypeRows], yv[kDtypeRows];
 #pragma unroll
   for (int r = 0; r < kDtypeRows; ++r) {
-    xv[r] = x[(size_t)r * W + c];
-    yv[r] = y[(size_t)r * W + c];
+    xv[r] = L::load(x + (size_t)r * P + col, two);
+    yv[r] = L::load(y + (size_t)r * P + col, two);
   }
-  for (int it = 0; it < iters; ++it) {
+  for (int it = 0; it < iters;) {
+    const int rem = iters - it;
+    const int h = headroom<L>(xv, yv);
+    if (h > 0) {
+      const int n = min(h, rem);
+#pragma unroll 2
+      for (int j = 0; j < n; ++j) {
 #pragma unroll
-    for (int r = kDtypeRows - 1; r >= 0; --r) {
-      const uint32_t xs = r ? xv[r - 1] : 0u;
-      const uint32_t m = vmax<LANES>(vadd<LANES>(xv[r], one), vmax<LANES>(xs, yv[r]));
-      const uint32_t eq = vcmpeq<LANES>(m, xv[r]);
-      const uint32_t y2 = (eq & vadd<LANES>(yv[r], one)) | (~eq & m);
-      xv[r] = vmax<LANES>(vsub<LANES>(m, one), y2);
-      yv[r] = y2;
+        for (int r = kDtypeRows - 1; r >= 0; --r) {
+          const uint32_t xs = r ? xv[r - 1] : 0u;
+          const uint32_t m = L::addmax(xv[r], L::kOne, L::vmax(xs, yv[r]));
+          xv[r] = L::addmax(m, L::kMinusOne, m);
+          yv[r] = m;
+        }
+      }
+      it += n;
+    } else {
+      const int n = min(kGeneralRun, rem);
+#pragma unroll 1
+      for (int j = 0; j < n; ++j) {
+#pragma unroll
+        for (int r = kDtypeRows - 1; r >= 0; --r) {
+          const uint32_t xs = r ? xv[r - 1] : 0u;
+          const uint32_t m = L::addmax(xv[r], L::kOne, L::vmax(xs, yv[r]));
+          const uint32_t y2 = L::select_eq(m, xv[r], L::inc(yv[r]), m);
+          xv[r] = L::addmax(m, L::kMinusOne, y2);
+          yv[r] = y2;
+        }
+      }
+      it += n;
     }
   }
 #pragma unroll
-  for (int r = 0; r < kDtypeRows; ++r) out[(size_t)r * W + c] = vadd<LANES>(xv[r], yv[r]);
+  for (int r = 0; r < kDtypeRows; ++r)  // x + y: an add-max against the minimum
+    L::store(out + (size_t)r * P + col, L::addmax(xv[r], yv[r], L::kMin), two);
 }
 
 dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+
+template <class L>
+void launch_dtype(const void* x, const void* y, void* out, int P, int iters, cudaStream_t s) {
+  using T = typename L::T;
+  const int threads = (P + L::kColumns - 1) / L::kColumns;
+  dtype_probe_kernel<L><<<grid_for(threads), kThreads, 0, s>>>((const T*)x, (const T*)y,
+                                                                  (T*)out, P, iters);
+}
 
 }  // namespace
 
@@ -197,40 +310,17 @@ extern "C" int pack_probe_launch(int mode, const void* x, void* out, int P, int 
   return (int)cudaGetLastError();
 }
 
-// x, y, out: [14, P] of a bits-wide signed type (32, 16 or 8).
+// x, y, out: contiguous [14, P] of a bits-wide signed type (32, 16 or 8);
+// 2-byte (int16) or 1-byte (int8) alignment is enough: elements are read one
+// by one.
 extern "C" int dtype_probe_launch(int bits, const void* x, const void* y, void* out, int P,
                                   int iters, void* stream) {
   if (P <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (bits) {
-    case 32:
-      dtype_probe_kernel<int32_t, uint32_t><<<grid_for(P), kThreads, 0, s>>>(
-          (const int32_t*)x, (const int32_t*)y, (int32_t*)out, P, iters);
-      break;
-    case 16:
-      dtype_probe_kernel<int16_t, uint16_t><<<grid_for(P), kThreads, 0, s>>>(
-          (const int16_t*)x, (const int16_t*)y, (int16_t*)out, P, iters);
-      break;
-    case 8:
-      dtype_probe_kernel<int8_t, uint8_t><<<grid_for(P), kThreads, 0, s>>>(
-          (const int8_t*)x, (const int8_t*)y, (int8_t*)out, P, iters);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// x, y, out: [14, W] 32-bit words of `lanes` (2: int16, 4: int8) columns each.
-extern "C" int dtype_probe_packed_launch(int lanes, const void* x, const void* y, void* out,
-                                         int W, int iters, void* stream) {
-  if (W <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const auto* xi = (const uint32_t*)x;
-  const auto* yi = (const uint32_t*)y;
-  auto* o = (uint32_t*)out;
-  switch (lanes) {
-    case 2: dtype_probe_packed<2><<<grid_for(W), kThreads, 0, s>>>(xi, yi, o, W, iters); break;
-    case 4: dtype_probe_packed<4><<<grid_for(W), kThreads, 0, s>>>(xi, yi, o, W, iters); break;
+    case 32: launch_dtype<Lane32>(x, y, out, P, iters, s); break;
+    case 16: launch_dtype<Lane16x2<0>>(x, y, out, P, iters, s); break;
+    case 8: launch_dtype<Lane16x2<8>>(x, y, out, P, iters, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

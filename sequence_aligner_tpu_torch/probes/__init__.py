@@ -3,9 +3,10 @@
 32-bit word pay for a max chain?) and ``dtype_probe`` (does a narrower type
 give the DP's max / add / compare / select mix more throughput?).
 
-Each module has its CUDA kernels (``csrc/probes.cu``) behind a wrapper with a
-launch count, a plain PyTorch version beside it, and a ``main`` that times
-every variant on the card:
+Each module has its CUDA kernels (``csrc/probes.cu``: built from Hopper's
+DPX instructions, the 3-input max and the add-max, in 32-bit and 16x2
+lanes) behind a wrapper with a launch count, a plain PyTorch version beside
+it, and a ``main`` that times every variant on the card:
 
     python -m sequence_aligner_tpu_torch.probes.pack_probe
     python -m sequence_aligner_tpu_torch.probes.dtype_probe
@@ -31,7 +32,6 @@ def lib() -> ctypes.CDLL:
     so = _build.load("probes")
     so.pack_probe_launch.argtypes = [_CI, _VP, _VP, _CI, _CI, _VP]
     so.dtype_probe_launch.argtypes = [_CI, _VP, _VP, _VP, _CI, _CI, _VP]
-    so.dtype_probe_packed_launch.argtypes = [_CI, _VP, _VP, _VP, _CI, _CI, _VP]
-    for f in (so.pack_probe_launch, so.dtype_probe_launch, so.dtype_probe_packed_launch):
+    for f in (so.pack_probe_launch, so.dtype_probe_launch):
         f.restype = _CI
     return so

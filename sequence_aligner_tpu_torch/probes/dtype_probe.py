@@ -10,19 +10,27 @@ Port of the TPU probe ``tools/dtype_probe.py`` (``kernel`` :33): ITERS =
 and the output x + y, every add wrapping in two's complement as XLA's does
 (the int8 variant wraps within about 128 steps).  Variants:
 
-  int32, int16, int8   one column a thread in its own type;
-  int16x2, int8x4      the int16 / int8 block with 2 / 4 neighbouring
-                       columns in one 32-bit register (SIMD video
-                       intrinsics): the only way this card gives narrow
-                       types more throughput.
+  int32             one column a thread, in 32-bit DPX instructions;
+  int16, int16x2    two neighbouring columns in the 16-bit lanes of one
+                    register (``__vmaxs2``, ``__viaddmax_s16x2``);
+  int8, int8x4      the same, each int8 value in its lane's high byte, where
+                    the 16-bit wrap is int8's.
 
-``dtype_probe`` launches the kernel of csrc/probes.cu for CUDA tensors and
-counts its launches in ``launches``; for CPU tensors it runs
-``dtype_probe_plain``, the plain PyTorch version.
+The kernel (csrc/probes.cu) takes a step as max, add-max, add-max while the
+thread's values are far enough below the type's maximum that no compare can
+hold, and the whole step otherwise.  The packed names (``packed=True``) are
+those of the earlier SIMD forms: they run the same kernel as their type and
+keep the rule that P is a multiple of 2 (int16) or 4 (int8).  Elements are
+read one by one, so any P and any view PyTorch aligns to its type are taken.
+
+``dtype_probe`` launches the kernel for CUDA tensors and counts its launches
+in ``launches``; for CPU tensors it runs ``dtype_probe_plain``, the plain
+PyTorch version.
 
     python -m sequence_aligner_tpu_torch.probes.dtype_probe
 
-times every variant at the TPU probe's P = 1024 and at a size that fills the
+checks every variant on the probe's inputs and on inputs at the types'
+limits, times them at the TPU probe's P = 1024 and at a size that fills the
 card, and prints the int32 / int16 speed ratio the TPU probe printed.
 """
 
@@ -57,6 +65,23 @@ def probe_inputs(p: int, dtype: str, *, seed: int = 0) -> tuple[np.ndarray, np.n
     return base.astype(dtype), (base // 2).astype(dtype)
 
 
+def edge_inputs(p: int, dtype: str, *, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """x, y [14, p] of ``dtype``, each value drawn from the type's top 64,
+    its bottom 64 or the probe's [-100, 100): lanes reach the maximum, where
+    x + 1 and y + 1 wrap and m == x holds, within the first steps."""
+    info = np.iinfo(dtype)
+    rng = np.random.RandomState(seed)
+
+    def draw():
+        pick = rng.randint(0, 3, (ROWS, p))
+        top = rng.randint(info.max - 63, info.max + 1, (ROWS, p), dtype=np.int64)
+        bottom = rng.randint(info.min, info.min + 64, (ROWS, p), dtype=np.int64)
+        mid = rng.randint(-100, 100, (ROWS, p))
+        return np.select([pick == 0, pick == 1], [top, bottom], mid).astype(dtype)
+
+    return draw(), draw()
+
+
 def dtype_probe_plain(x: torch.Tensor, y: torch.Tensor, *, iters: int = ITERS) -> torch.Tensor:
     """The plain PyTorch version: the same steps as tensor ops in the
     inputs' type (PyTorch's integer adds wrap in two's complement)."""
@@ -79,8 +104,8 @@ def _variant(dtype: torch.dtype, packed: bool) -> str:
 def dtype_probe(x: torch.Tensor, y: torch.Tensor, *, packed: bool = False,
                 iters: int = ITERS) -> torch.Tensor:
     """ITERS steps on x, y [14, P] of int32, int16 or int8 -> x + y [14, P].
-    ``packed`` (int16, int8) runs the SIMD form: P must be a multiple of 2
-    (int16) or 4 (int8)."""
+    ``packed`` (int16, int8) names the packed variant: P must be a multiple
+    of 2 (int16) or 4 (int8)."""
     if x.dtype not in _BITS or y.dtype != x.dtype:
         raise TypeError("x and y must both be int32, int16 or int8")
     if x.dim() != 2 or x.shape[0] != ROWS or y.shape != x.shape \
@@ -101,14 +126,9 @@ def dtype_probe(x: torch.Tensor, y: torch.Tensor, *, packed: bool = False,
     out = torch.empty_like(x)
     if x.shape[1] == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    so = probes.lib()
-    if packed:
-        rc = so.dtype_probe_packed_launch(lanes, x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                          x.shape[1] // lanes, iters, stream)
-    else:
-        rc = so.dtype_probe_launch(bits, x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                   x.shape[1], iters, stream)
+    rc = probes.lib().dtype_probe_launch(bits, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                                         x.shape[1], iters,
+                                         torch.cuda.current_stream(x.device).cuda_stream)
     variant = _variant(x.dtype, packed)
     if rc != 0:
         raise RuntimeError(f"dtype probe kernel ({variant}) launch failed: CUDA error {rc}")
@@ -116,10 +136,46 @@ def dtype_probe(x: torch.Tensor, y: torch.Tensor, *, packed: bool = False,
     return out
 
 
-def measure(sizes=probes.SIZES, *, reps: int = 10) -> list[dict]:
+def _check(what: str, x: torch.Tensor, y: torch.Tensor, packed: bool) -> None:
+    err = int((dtype_probe(x, y, packed=packed).long()
+               - dtype_probe_plain(x, y).long()).abs().max())
+    if err:
+        raise AssertionError(f"dtype probe {what} differs from its plain version: "
+                             f"max |diff| {err}")
+
+
+def check_edges(p: int = 1000) -> list[str]:
+    """Every variant on the card against its plain version (tolerance 0,
+    raises otherwise) where the probe's inputs never go: values at the
+    types' limits (``edge_inputs``), an odd P, and a view that starts one
+    element into its storage.  Returns what was checked."""
+    dev = resolve_device("cuda")
+    done = []
+    for variant in VARIANTS:
+        name = variant[:-2] if variant.endswith(("x2", "x4")) else variant
+        x, y = (torch.from_numpy(a).to(dev) for a in edge_inputs(p, name, seed=p))
+        _check(f"{variant} at its limits, P={p}", x, y, name != variant)
+        done.append(f"{variant} limits P={p}")
+    for name in ("int16", "int8"):
+        x, y = (torch.from_numpy(a).to(dev) for a in edge_inputs(p + 1, name, seed=p + 1))
+        _check(f"{name} at odd P={p + 1}", x, y, False)
+        flat = torch.from_numpy(edge_inputs(p, name, seed=p + 2)[0]).to(dev).flatten()
+        store = torch.cat([flat[:1], flat])  # the view starts one element in
+        xv = store[1:].view(ROWS, p)
+        _check(f"{name} on a view at byte offset {xv.element_size()}", xv, xv.flip(1).contiguous(),
+               False)
+        done += [f"{name} odd P={p + 1}", f"{name} view offset {xv.element_size()} B"]
+    return done
+
+
+def measure(sizes=probes.SIZES, *, reps: int = 10, inputs: str = "probe") -> list[dict]:
     """Every variant at each P of ``sizes`` on the card: checked equal to its
     plain version (tolerance 0, raises otherwise), then timed with CUDA
-    events beside the plain version and the bound."""
+    events beside the plain version and the bound.  ``inputs`` "probe" are
+    the TPU probe's (``probe_inputs``); "limits" (``edge_inputs``) keep lanes
+    at the type's maximum, so the kernel takes the whole step, compare and
+    select included."""
+    make = {"probe": probe_inputs, "limits": edge_inputs}[inputs]
     dev = resolve_device("cuda")  # raises where there is no card
     sms, mhz = card()
     rows = []
@@ -127,7 +183,7 @@ def measure(sizes=probes.SIZES, *, reps: int = 10) -> list[dict]:
         for variant in VARIANTS:
             name = variant[:-2] if variant.endswith(("x2", "x4")) else variant
             packed = name != variant
-            x, y = (torch.from_numpy(a).to(dev) for a in probe_inputs(p, name, seed=p))
+            x, y = (torch.from_numpy(a).to(dev) for a in make(p, name, seed=p))
             got = dtype_probe(x, y, packed=packed)
             want = dtype_probe_plain(x, y)
             err = int((got.long() - want.long()).abs().max())
@@ -141,20 +197,21 @@ def measure(sizes=probes.SIZES, *, reps: int = 10) -> list[dict]:
             lanes = 32 // _BITS[x.dtype]
             bound, by = bound_ms(OPS_PER_STEP * ITERS * ROWS * p / lanes,
                                         3 * x.numel() * x.element_size(), sms, mhz)
-            rows.append(dict(variant=variant, P=p, max_abs_err=err, ms=ms,
+            rows.append(dict(variant=variant, P=p, inputs=inputs, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                              library_ms=None))
     return rows
 
 
 def main(argv: list[str] | None = None) -> int:
-    res = measure()
+    print("dtype probe, equal to the plain version: " + ", ".join(check_edges()))
+    res = measure() + measure(probes.SIZES[-1:], inputs="limits")
     for r in res:
-        print(f"dtype probe {r['variant']:8s} P={r['P']:8d}: {r['ms']:.4f} ms "
+        print(f"dtype probe {r['variant']:8s} P={r['P']:8d} {r['inputs']:6s}: {r['ms']:.4f} ms "
               f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.4f} ms)")
-    for p in probes.SIZES:
-        t = {r["variant"]: r["ms"] for r in res if r["P"] == p}
-        print(f"P={p}: int32 / int16 {t['int32'] / t['int16']:.3f}x, "
+    for inputs, p in sorted({(r["inputs"], r["P"]) for r in res}):
+        t = {r["variant"]: r["ms"] for r in res if (r["inputs"], r["P"]) == (inputs, p)}
+        print(f"P={p}, {inputs} inputs: int32 / int16 {t['int32'] / t['int16']:.3f}x, "
               f"int32 / int16x2 {t['int32'] / t['int16x2']:.3f}x, "
               f"int32 / int8x4 {t['int32'] / t['int8x4']:.3f}x")
     print(json.dumps({"dtype_probe": res}))

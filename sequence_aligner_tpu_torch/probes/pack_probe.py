@@ -9,14 +9,18 @@ on a [13, P] int32 block, where ``roll_up(v)[r] = v[(r + 1) % 13]`` and op is
           (bits 0-14 and 16-30, guard bits 15 and 31), on [13, P / 2] —
           the same logical volume;
   vmax2   the card's own answer: the same words through the signed 16x2
-          SIMD max (``__vmaxs2``), which on the probe's inputs (fields
-          below 2^14, guard bits zero) gives SWAR's words.
+          max, which on the probe's inputs (fields below 2^14, guard bits
+          zero) gives SWAR's words.
 
 ``pack_probe`` launches ``pack_probe_kernel`` (csrc/probes.cu) for CUDA
 tensors and counts its launches in ``launches``; for CPU tensors it runs
-``pack_probe_plain``, the plain PyTorch version.  Native's output is the
-column max broadcast over rows (``amax``); the probe exists to time the
-chain, not to compute it.
+``pack_probe_plain``, the plain PyTorch version.  The kernel takes two
+repetitions as one 3-input max (Hopper's VIMNMX3: max is associative and
+idempotent), and runs SWAR that way, as the 16x2 unsigned max, on every
+column whose words all have clear guard bits (there ``swar_max`` is that
+max); a column with a guard bit set runs the emulation.  Native's output
+is the column max broadcast over rows (``amax``); the probe exists to time
+the chain, not to compute it.
 
     python -m sequence_aligner_tpu_torch.probes.pack_probe
 
@@ -54,6 +58,17 @@ def probe_input(p: int, *, fields: int = 1, seed: int = 0) -> np.ndarray:
     if fields == 2:
         x |= rng.randint(0, 1 << 14, (COLS, p)).astype(np.int32) << 16
     return x
+
+
+def guard_input(p: int, *, seed: int = 0) -> np.ndarray:
+    """[13, p] int32 for SWAR where columns of both kinds share a warp: even
+    columns have two 15-bit fields of any value (guard bits clear), odd ones
+    any 32-bit words (guard bits set)."""
+    rng = np.random.RandomState(seed)
+    clear = rng.randint(0, 1 << 15, (COLS, p)) | rng.randint(0, 1 << 15, (COLS, p)) << 16
+    any_bits = rng.randint(0, 1 << 32, (COLS, p), dtype=np.int64)
+    words = np.where(np.arange(p) % 2 == 0, clear, any_bits)
+    return words.astype(np.uint32).view(np.int32)
 
 
 def _to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -119,6 +134,26 @@ def pack_probe(x: torch.Tensor, variant: str = "native", *, rows: int = ROWS) ->
     return out
 
 
+def check_edges(p: int = 1000) -> list[str]:
+    """Every variant on the card against its plain version (tolerance 0,
+    raises otherwise) where the probe's inputs never go: SWAR on
+    ``guard_input`` (guard-set and guard-clear columns in one warp), and
+    every variant on any 32-bit words.  Returns what was checked."""
+    dev = resolve_device("cuda")
+    rng = np.random.RandomState(p)
+    cases = [("swar", "guard-set and guard-clear columns", guard_input(p, seed=p))]
+    words = rng.randint(0, 1 << 32, (COLS, p), dtype=np.int64).astype(np.uint32).view(np.int32)
+    cases += [(v, "any 32-bit words", words) for v in VARIANTS]
+    for variant, what, a in cases:
+        x = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        err = int((pack_probe(x, variant).long()
+                   - pack_probe_plain(x, variant).long()).abs().max())
+        if err:
+            raise AssertionError(f"pack probe {variant} on {what} differs from its plain "
+                                 f"version: max |diff| {err}")
+    return [f"{v} on {w}, P={p}" for v, w, _ in cases]
+
+
 def measure(sizes=probes.SIZES, *, reps: int = 20) -> list[dict]:
     """Every variant at each P of ``sizes`` on the card: checked equal to its
     plain version (tolerance 0, raises otherwise), then timed with CUDA
@@ -155,6 +190,7 @@ def measure(sizes=probes.SIZES, *, reps: int = 20) -> list[dict]:
 
 
 def main(argv: list[str] | None = None) -> int:
+    print("pack probe, equal to the plain version: " + "; ".join(check_edges()))
     res = measure()
     for r in res:
         print(f"pack probe {r['variant']:6s} P={r['P']:8d} [13, {r['words']}]: "

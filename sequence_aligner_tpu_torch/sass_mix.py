@@ -9,6 +9,9 @@ longest backward branch: the DP row loop of the dovetail kernels, the chain
 loop of the probes) by opcode
 family, with the share of register moves (``MOV``, ``IMAD.MOV``), control flow
 and the rest.  Register moves cost an issue slot but do no work of the DP.
+Then, for every loop (every backward branch's span), its min / max
+instructions by full opcode: Hopper's DPX forms (``VIMNMX3``, ``VIADDMNMX``,
+``VIMNMX`` with its 16x2 modifiers) beside the plain ``IMNMX``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,24 @@ def row_loop(body: list[tuple[int, str]]) -> list[tuple[int, str]]:
     return [(a, i) for a, i in body if best[0] <= a <= best[1]]
 
 
+def loops(body: list[tuple[int, str]]) -> list[tuple[int, int]]:
+    """(start, end) address of every backward branch's span, in order."""
+    spans = set()
+    for addr, ins in body:
+        m = _BRA.match(ins)
+        if m and int(m.group(1), 16) < addr:
+            spans.add((int(m.group(1), 16), addr))
+    return sorted(spans)
+
+
+def minmax(loop: list[tuple[int, str]]) -> dict[str, int]:
+    """Min / max instructions by full opcode (``VIMNMX3.S16x2``, ``IMNMX``,
+    ...): the DPX forms and the plain two-input one."""
+    return dict(collections.Counter(
+        op for op in (opcode(i) for _, i in loop) if "MNMX" in op.split(".")[0]
+    ).most_common())
+
+
 def mix(loop: list[tuple[int, str]]) -> dict:
     fam = collections.Counter()
     moves = control = 0
@@ -81,32 +102,71 @@ def mix(loop: list[tuple[int, str]]) -> dict:
 
 _TYPES = {"a": "int8_t", "s": "int16_t", "i": "int32_t",
           "h": "uint8_t", "t": "uint16_t", "j": "uint32_t"}
+_IDENT = re.compile(r"\d+")
+
+
+def _ident(name: str, i: int) -> tuple[str, int]:
+    d = _IDENT.match(name, i)
+    n = int(d.group())
+    return name[d.end() : d.end() + n], d.end() + n
+
+
+def _args(name: str, i: int) -> tuple[list[str], int]:
+    """Template arguments from ``name[i] == "I"`` to their ``E``: integer and
+    bool literals, integer types, and (nested) class names with arguments."""
+    i += 1
+    args = []
+    while name[i] != "E":
+        if name.startswith(("Li", "Lb"), i):
+            end = name.index("E", i)
+            lit = name[i + 2 : end]
+            args.append(lit if name[i + 1] == "i" else ("true" if lit == "1" else "false"))
+            i = end + 1
+        elif name[i] in _TYPES:
+            args.append(_TYPES[name[i]])
+            i += 1
+        else:  # a class: N <prefixes> <name> [I ... E] E, or <name> [I ... E]
+            nested = name[i] == "N"
+            i += nested
+            base = ""
+            while name[i] == "S" or name[i].isdigit():
+                if name[i] == "S":  # a substitution (the enclosing namespace)
+                    i = name.index("_", i) + 1
+                else:
+                    base, i = _ident(name, i)
+            if not base:
+                raise ValueError(f"no template argument at {name[i:]!r}")
+            sub = []
+            if name[i] == "I":
+                sub, i = _args(name, i)
+            if nested:
+                i += 1  # the nested name's E
+            args.append(f"{base}<{', '.join(sub)}>" if sub else base)
+    return args, i + 1
 
 
 def _demangle_short(name: str) -> str:
     """``kernel<args>`` for a templated kernel's mangled name, with integer,
-    bool and integer-type template arguments; the anonymous namespace
+    bool, integer-type and class template arguments; the anonymous namespace
     (``_ZN41_GLOBAL__N__..._9_probes_cu_...17pack_probe_kernelILi1EEE...``)
     is dropped."""
     m = re.match(r"_ZN?", name)
     if not m:
         return name
     i, base = m.end(), None
-    while (d := re.match(r"\d+", name[i:])):  # length-prefixed identifiers
-        n = int(d.group())
-        ident = name[i + d.end() : i + d.end() + n]
-        i += d.end() + n
+    while _IDENT.match(name, i):  # length-prefixed identifiers
+        ident, i = _ident(name, i)
         if not ident.startswith("_GLOBAL__N"):
             base = ident
             break
     if base is None:
         return name
-    rest = name[i:]
-    if not rest.startswith("I"):
+    if not name.startswith("I", i):
         return base
-    args = [lit or ("true" if flag == "1" else "false") if lit or flag else _TYPES[typ]
-            for lit, flag, typ in
-            re.findall(r"Li(-?\d+)E|Lb([01])E|([ashtij])", rest[1 : rest.find("EE") + 1])]
+    try:
+        args, _ = _args(name, i)
+    except (ValueError, IndexError, AttributeError):
+        return base
     return f"{base}<{', '.join(args)}>"
 
 
@@ -131,6 +191,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{_demangle_short(name)}: row loop {m['instructions']} instructions, "
               f"{m['moves']} register moves ({100 * m['move_share']:.1f} %), "
               f"{m['control']} control, {m['other']} other; {fams}")
+        for lo, hi in loops(body):
+            span = [(a, i) for a, i in body if lo <= a <= hi]
+            mm = ", ".join(f"{k} {v}" for k, v in minmax(span).items()) or "none"
+            print(f"    loop {lo:#06x}-{hi:#06x}: {len(span)} instructions; min/max: {mm}")
     return 0
 
 

@@ -215,6 +215,46 @@ def test_dtype_probe_kernels_equal_plain_versions(cuda, variant, p):
     assert torch.equal(got, dp.dtype_probe_plain(x, y))
 
 
+def test_pack_probe_swar_guard_set_and_clear_columns_in_one_warp(cuda):
+    """Even columns guard-clear (the fused 16x2 path), odd ones guard-set
+    (the emulation): both paths diverge inside every warp."""
+    x = torch.from_numpy(pp.guard_input(1000, seed=8)).to(cuda)
+    clear = ((x.long() & pp._GUARD) == 0).all(0)
+    assert clear[0::2].all() and not clear[1::2].any()
+    assert torch.equal(pp.pack_probe(x, "swar"), pp.pack_probe_plain(x, "swar"))
+
+
+@pytest.mark.parametrize("variant", pp.VARIANTS)
+def test_pack_probe_kernels_on_any_words(cuda, variant):
+    a = np.random.RandomState(9).randint(0, 1 << 32, (pp.COLS, 1000), dtype=np.int64)
+    x = torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(cuda)
+    assert torch.equal(pp.pack_probe(x, variant), pp.pack_probe_plain(x, variant))
+
+
+@pytest.mark.parametrize("variant", dp.VARIANTS)
+def test_dtype_probe_kernels_at_the_types_limits(cuda, variant):
+    """Lanes at the maximum: x + 1 and y + 1 wrap inside __viaddmax_* (a
+    saturating add would differ from the plain version) and m == x holds."""
+    name = variant[:-2] if variant.endswith(("x2", "x4")) else variant
+    x, y = (torch.from_numpy(a).to(cuda) for a in dp.edge_inputs(1000, name, seed=10))
+    assert int(x.max()) == torch.iinfo(x.dtype).max
+    got = dp.dtype_probe(x, y, packed=name != variant)
+    assert torch.equal(got, dp.dtype_probe_plain(x, y))
+
+
+@pytest.mark.parametrize("name", ["int16", "int8"])
+def test_dtype_probe_odd_p_and_offset_views(cuda, name):
+    """An odd P (the last thread holds one column) and a view that starts
+    one element into its storage (2-byte aligned int16)."""
+    for p in (1, 1001):
+        x, y = (torch.from_numpy(a).to(cuda) for a in dp.edge_inputs(p, name, seed=p))
+        assert torch.equal(dp.dtype_probe(x, y), dp.dtype_probe_plain(x, y))
+    x, y = (torch.from_numpy(a).to(cuda).flatten() for a in dp.probe_inputs(1000, name))
+    xs, ys = (torch.cat([t[:1], t])[1:].view(dp.ROWS, 1000) for t in (x, y))
+    assert xs.data_ptr() % 4 != 0 and xs.is_contiguous()
+    assert torch.equal(dp.dtype_probe(xs, ys), dp.dtype_probe_plain(xs, ys))
+
+
 def test_ids_past_16_bits_on_the_card_equal_the_cpu(cuda):
     bases, lengths = encode_reads(simulated_reads(4000, 100, coverage=20.0, seed=5))
     ids = torch.arange(70001, 74001, dtype=torch.int32)
