@@ -35,14 +35,23 @@ nvcc, then, each phase fatal on failure:
      (the CPU side is the path the CPU tests hold against the JAX package);
   5. writes a 2,048-read FASTA to a temporary directory, runs
      ``python -m sequence_aligner_tpu_torch.cli`` on it and checks that the
-     OVL file equals phase 4's records;
+     OVL file equals phase 4's records; then the CLI on the card and with
+     ``--device cpu`` (all runs at once, one process each) with ``-H`` (a
+     pair-format HOXD file written here), ``--quadratic-align``,
+     ``--single-align``, ``--engine oracle`` (on 30 reads),
+     ``--bench-align-quick``, ``--debug`` and ``--profile``: the OVL files
+     must be byte-equal, the bench lines equal but for their milliseconds,
+     and on the card ``--profile`` must write a trace and ``--debug`` print
+     the card's memory;
   6. the large-input path at full size: 1,000,000 simulated 100 bp reads at
      coverage 8 (k = 16, amos_parity settings) written as FASTA to a
-     temporary directory, run by ``Overlapper.run_arrays`` and by
-     ``run_stream_arrays``, each with the launch counters set to 0 just
-     before and read just after (both kernels must launch); the two record
-     sets must be equal and hold the JAX engine's record and candidate
-     counts.  Each kernel is held against its plain version on the first
+     temporary directory.  The native reader's (bases, lengths) of the file
+     must equal the Python reader's (``read_fasta`` + ``encode_reads``);
+     then the file is run by ``Overlapper.run_arrays`` and by
+     ``run_stream_arrays`` (both read it with the native reader), each with
+     the launch counters set to 0 just before and read just after (both
+     kernels must launch); the two record sets must be equal and hold the
+     JAX engine's record and candidate counts.  Each kernel is held against its plain version on the first
      65,536 pairs of its largest launch in the ``run_arrays`` run (w = 16,
      the exact 16-column instances), then timed there.  Prints reads, candidate
      pairs, records, the raw stream totals, stage times, reads/s and peak
@@ -57,7 +66,13 @@ nvcc, then, each phase fatal on failure:
      in one warp, any 32-bit words, dtype values at the types' limits, int16
      and int8 at an odd P and on a view one element into its storage), then
      on the probes' inputs, timed at the TPU probes' P = 1024 and at P =
-     2^20, with SWAR / native and int32 / int16.
+     2^20, with SWAR / native and int32 / int16;
+  9. the quadratic path (``Overlapper(fast_dovetail=False)``, torch ops, no
+     kernel of its own): 2,048 reads (100 bp, 1% errors) on the card and on
+     the CPU must give equal arrays; then the main path's 32,000 reads on the
+     card, printing candidate pairs, records beside the banded path's, the
+     stage times, the chunks and their size, peak device memory and the
+     align stage beside its bound, and one ``{"quadratic": ...}`` JSON line.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -95,6 +110,17 @@ RECORDS_JAX_1M, CANDIDATES_JAX_1M = 3_999_987, 4_104_565
 # sequence_aligner_tpu_torch.sass_mix: 22.5 and 38.0 non-move, non-control
 # instructions a cell at w = 16), so no bound counts more than the DP needs
 OPS_PER_CELL = {"phase1": 21, "phase2": 34}
+# int32 operations per cell of the quadratic path's full Smith-Waterman
+# (ops/align_lax.py), counted the same way from its row step: score index
+# 1, M 3 (3-input max, clamp, add), Y 5 (two adds, clamp, 3-input max, add),
+# X input 3 (max, add, clamp), X chain 3 (subtract, running max, add),
+# traceback code 7 (3-input max, two compares, two selects, a compare and
+# an or), running best 5 (mask, row max, compare, first-index select, min)
+QUAD_OPS_PER_CELL = 27
+# a HOXD matrix in the pair format (lines "A,C=-96"; absent mirrored pairs
+# are filled by the reader) for the CLI's -H run
+HOXD_PAIRS = ("HOXD pairs\nA,A=67\nC,C=100\nG,G=100\nT,T=67\nA,C=-96\nA,G=-31\n"
+              "A,T=-117\nC,G=-125\nC,T=-31\nG,T=-96\n")
 # one width for each instance off the main paths: capacity24 .. capacity64
 # (w = 20, 31, 40, 60; the same instance in both phases) and general (70)
 OFF_PATH_WIDTHS = (20, 31, 40, 60, 70)
@@ -297,7 +323,22 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
     from sequence_aligner_tpu_torch.models.overlapper import Overlapper
     from sequence_aligner_tpu_torch.ops import align_fused as af
 
+    from sequence_aligner_tpu_torch.io.fasta import read_fasta
+    from sequence_aligner_tpu_torch.native import fasta_encode_native
+    from sequence_aligner_tpu_torch.ops.encode import encode_reads
+
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    nat = fasta_encode_native(path)
+    t1 = time.perf_counter()
+    py = encode_reads(read_fasta(path))
+    t2 = time.perf_counter()
+    if not all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(nat, py)):
+        raise AssertionError("the native reader's (bases, lengths) differ from the Python "
+                             "reader's on the 1M FASTA")
+    log(f"  equal: native reader and read_fasta + encode_reads on the 1M FASTA, bases "
+        f"{nat[0].shape}; native {t1 - t0:.3f} s, Python {t2 - t1:.3f} s (host)")
+    del nat, py
     res = {}
     for name in ("run_arrays", "run_stream_arrays"):
         torch.cuda.synchronize(dev)
@@ -318,8 +359,9 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
             f"{st.n_phase2_pairs}  records {st.n_valid}  dp_cells {st.dp_cells}")
         log(f"  {name}: stage times (s) "
             + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
-        log(f"  {name}: wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; peak device "
-            f"memory {peak:.1f} MiB; launches {launches}; by instance {by_instance}")
+        log(f"  {name}: wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; encode "
+            f"(native reader) {ov.stage_s['encode']:.4f} s; peak device memory {peak:.1f} MiB; "
+            f"launches {launches}; by instance {by_instance}")
         if min(launches.get("phase1", 0), launches.get("phase2", 0)) < 1:
             raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
         check_records(arrs, n_reads, s)
@@ -415,6 +457,120 @@ def wide_rows_phase(dev, sms: int, sm_mhz: float) -> list[dict]:
     if not int(np.asarray(got[5].cpu()).max()) > 1 << 15:
         raise AssertionError("phase 2's counts did not pass 2^15 on the wide pair")
     return entries
+
+
+def cli_phase(fasta: str, tmp: str) -> None:
+    """Phase 5b: the CLI on the card and with ``--device cpu`` for each flag
+    set, every run a process of its own and all started at once; OVL files
+    must be byte-equal, bench lines equal but for their milliseconds."""
+    import re
+
+    from sequence_aligner_tpu_torch.pipeline.datasets import simulated_reads, write_seq
+
+    hoxd = os.path.join(tmp, "hoxd_pairs.txt")
+    Path(hoxd).write_text(HOXD_PAIRS)
+    fasta30 = os.path.join(tmp, "r30.fasta")
+    write_seq(simulated_reads(30, READ_LEN, coverage=6.0, error_rate=0.01, seed=4), fasta30)
+    runs = {"hoxd": [fasta, "-H", hoxd], "quadratic": [fasta, "--quadratic-align"],
+            "single": [fasta, "--single-align"], "oracle": [fasta30, "--engine", "oracle"],
+            "bench": [fasta, "--bench-align-quick"], "debug": [fasta, "--debug"],
+            "profile": [fasta, "--profile", os.path.join(tmp, "prof_{dev}")]}
+    procs = {}
+    for name, (inp, *flags) in runs.items():
+        for dev in ("cuda", "cpu"):
+            out = [] if name == "bench" else ["-o", os.path.join(tmp, f"{name}_{dev}.ovl")]
+            procs[name, dev] = subprocess.Popen(
+                [sys.executable, "-m", "sequence_aligner_tpu_torch.cli", "-i", inp,
+                 *(f.format(dev=dev) for f in flags), *out, "--device", dev], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    res = {}
+    try:
+        for key, pr in procs.items():
+            res[key] = pr.communicate(timeout=600)
+            if pr.returncode != 0:
+                raise AssertionError(f"CLI {runs[key[0]][1:]} on {key[1]} exited "
+                                     f"{pr.returncode}: {res[key][1][-2000:]}")
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for name in runs:
+        if name == "bench":
+            card, cpu = (re.sub(r"\d+ milliseconds", "N milliseconds", res[name, d][0])
+                         for d in ("cuda", "cpu"))
+            lines = [ln for ln in card.splitlines() if ln]
+            if card != cpu or len([ln for ln in lines if ln.startswith("Calculated ")]) != 8:
+                raise AssertionError(f"--bench-align-quick differs on the card:\n{card}\n{cpu}")
+            log("  equal: --bench-align-quick on the card and the CPU, " + "; ".join(
+                ln.split(" in ")[0] for ln in res[name, "cuda"][0].splitlines() if ln))
+            continue
+        a, b = (Path(tmp, f"{name}_{d}.ovl").read_bytes() for d in ("cuda", "cpu"))
+        if not (a and a == b):
+            raise AssertionError(f"CLI {runs[name][1:]}: the card's OVL differs from the CPU's")
+        log(f"  equal: CLI {' '.join(runs[name][1:])} on the card and the CPU "
+            f"({a.count(b'{OVL')} records)")
+    trace = Path(tmp, "prof_cuda", "trace.json")
+    if not (trace.is_file() and trace.stat().st_size > 0):
+        raise AssertionError("--profile wrote no trace on the card")
+    if "device memory: {'cuda:0'" not in res["debug", "cuda"][1]:
+        raise AssertionError(f"--debug on the card: {res['debug', 'cuda'][1][-2000:]}")
+    log(f"  --profile trace on the card: {trace.stat().st_size} bytes; --debug stderr: "
+        + " | ".join(res["debug", "cuda"][1].splitlines()[-3:]))
+
+
+def quadratic_phase(dev, s, reads, banded_records: int, sms: int, sm_mhz: float) -> None:
+    """Phase 9: the quadratic path on 2,048 reads on the card and the CPU
+    (equal arrays), then on the main path's reads on the card, timed."""
+    import numpy as np
+    import torch
+
+    from sequence_aligner_tpu_torch.measure import bound_ms
+    from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+    from sequence_aligner_tpu_torch.ops import align_lax
+    from sequence_aligner_tpu_torch.pipeline.datasets import simulated_reads
+
+    small = simulated_reads(2048, READ_LEN, coverage=COVERAGE, error_rate=0.01, seed=12)
+    t0 = time.perf_counter()
+    got = Overlapper(s, fast_dovetail=False, device=dev).run_arrays(small)
+    t1 = time.perf_counter()
+    want = Overlapper(s, fast_dovetail=False, device="cpu").run_arrays(small)
+    t2 = time.perf_counter()
+    if not (len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))):
+        raise AssertionError("quadratic path: card and CPU engines differ on 2,048 reads")
+    log(f"  equal: quadratic path on 2,048 reads (1% errors), card and CPU, {len(got[0])} "
+        f"records; card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    align_lax.calls = 0
+    ov = Overlapper(s, fast_dovetail=False, device=dev)
+    t0 = time.perf_counter()
+    arrs = ov.run_arrays(reads)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check_records(arrs, len(reads), s)
+    st = ov.stats
+    n = st.n_candidate_pairs
+    cells = st.dp_cells  # (la_max + 1)^2 a pair
+    # each pair's two reads, two lengths and two ids in, four words out
+    nbytes = n * (2 * READ_LEN + 4 * 4 + 4 * 4)
+    bound, by = bound_ms(cells * QUAD_OPS_PER_CELL, nbytes, sms, sm_mhz)
+    align_ms = ov.stage_s["align"] * 1e3
+    log(f"  quadratic, {len(reads)} reads: candidate pairs {n}, records {len(arrs[0])} "
+        f"(banded path {banded_records}), cells {cells}, chunks {align_lax.calls} of up to "
+        f"{ov.quad_chunk(n, READ_LEN)} pairs, wall {wall:.3f} s, peak device memory "
+        f"{peak:.1f} MiB")
+    log("  quadratic stage times (s): "
+        + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
+    log(f"  quadratic align {align_ms:.1f} ms, bound {bound:.3f} ms ({by}; "
+        f"{QUAD_OPS_PER_CELL} int32 ops/cell, {nbytes} bytes): {align_ms / bound:.1f}x")
+    log(json.dumps({"quadratic": dict(
+        reads=len(reads), candidate_pairs=n, records=len(arrs[0]),
+        banded_records=banded_records, chunks=align_lax.calls,
+        chunk_pairs=ov.quad_chunk(n, READ_LEN), wall_s=wall, align_ms=align_ms,
+        bound_ms=bound, bound_by=by, peak_mib=peak,
+        stages={k: round(v, 4) for k, v in ov.stage_s.items()})}))
 
 
 def register_report(logs: dict) -> dict:
@@ -737,6 +893,7 @@ def main() -> int:
             if Path(out).read_bytes() != Path(want).read_bytes():
                 return fail("CLI output differs from the engine's records")
             log(f"  CLI OVL equal ({Path(out).stat().st_size} bytes)")
+            cli_phase(fasta, tmp)
 
     # ---- 6. the large-input path at full size ----
     with Stage("large-input path: 1,000,000 x 100 bp, k = 16, run_arrays and "
@@ -759,6 +916,10 @@ def main() -> int:
     # ---- 8. probes ----
     with Stage("probes: every variant against its plain version, then timed"):
         kernels += probe_phase(launches)
+
+    # ---- 9. the quadratic path ----
+    with Stage("quadratic path: card against CPU, 2,048 reads; 32,000 x 100 bp on the card"):
+        quadratic_phase(dev, s, reads, len(arrs[0]), sms, sm_mhz)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

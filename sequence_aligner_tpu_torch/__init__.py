@@ -7,10 +7,16 @@ it and keeps its own copies of the host-side layers it needs.
 Layer map (the JAX package's layout, so each counterpart is easy to find):
 
   core/      settings and result records (host)
-  io/        FASTA reader and OVL writer (host)
+  io/        FASTA readers (Python, the plain versions), OVL writer, HOXD
+             matrix files (host)
+  native/    the C++ FASTA reader and OVL writer the engine uses, built with
+             g++ at first use (_build.py)
   ops/       encode (host), k-mer scan, pair generation, the dovetail aligner
-             with its two CUDA kernels and their plain PyTorch versions
-  models/    the Overlapper engine (calc-overlaps)
+             with its two CUDA kernels and their plain PyTorch versions, the
+             quadratic Smith-Waterman in torch ops
+  models/    the Overlapper engine
+  oracle/    the CPU oracle engine (numpy, one pair at a time)
+  utils/     --debug output and --profile traces
   pipeline/  simulated read sets
   csrc/      CUDA sources, built with nvcc at first use (_build.py)
   cli.py     ``python -m sequence_aligner_tpu_torch.cli``

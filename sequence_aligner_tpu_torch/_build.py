@@ -1,15 +1,20 @@
-"""Build the CUDA sources in ``csrc/`` into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/lib<name>-<hash>.so``
 at the repository root, compiled by ``nvcc`` for ``sm_90a`` with a plain C
 interface and loaded with ``ctypes``: no PyTorch or CUTLASS headers, so a
-build takes seconds.  The file name carries a hash of the sources and flags,
-so a changed source never loads a stale library.  The library is written
-under a temporary name and ``os.replace``d into place: parallel test workers
-never see half a file, and no lock file exists that could be left behind.
+build takes seconds.  The host library ``native/<name>.cpp`` (the FASTA
+reader and OVL writer) takes the same route with ``g++`` (``load_host``),
+built with ``-O3`` and no ``-march=native``: the hash names the sources,
+the compiler and its flags, never the machine, so a library carried to
+another host runs there.  The file name carries a hash of the sources and
+flags, so a changed source never loads a stale library.  The library is
+written under a temporary name and ``os.replace``d into place: parallel test
+workers never see half a file, and no lock file exists that could be left
+behind.
 
-If ``nvcc`` is missing or the build fails, loading raises with the
-compiler's output.  Nothing here runs at import time.
+If a compiler is missing or a build fails, loading raises with the
+compiler's output: nothing falls back.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,12 +29,16 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+NATIVE = _PKG / "native"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_TIMEOUT_S = 300
+BUILD_TIMEOUT_S = 300
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the host compiler command and its flags (no -march=native: see above)
+CXX = ("g++",)
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -57,12 +66,27 @@ def _sources(name: str) -> list[Path]:
     return [src, *sorted(CSRC.glob("*.cuh"))]
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources(name):
+def _hashed(name: str, flags, sources: list[Path]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    return _hashed(name, NVCC_FLAGS, _sources(name))
+
+
+def _spawn(out: Path, cmd_head: list[str], src: Path):
+    """Start ``cmd_head -o <temporary> src``; returns (out, temporary, Popen)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    proc = subprocess.Popen(
+        [*cmd_head, "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return out, tmp, proc
 
 
 def start_build(name: str):
@@ -71,32 +95,28 @@ def start_build(name: str):
     out = library_path(name)
     if out.is_file():
         return out, None, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    return out, tmp, proc
+    return _spawn(out, [find_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu")
 
 
 def finish_build(out: Path, tmp: Path | None, proc) -> str:
-    """Wait for a build from ``start_build``; returns the compiler's output
-    (the ``-Xptxas -v`` register and spill lines), raises if it failed."""
+    """Wait for a build from ``start_build`` (or ``load_host``); returns the
+    compiler's output (for nvcc the ``-Xptxas -v`` register and spill
+    lines), raises with it if the build failed."""
     if proc is None:
         log = out.with_suffix(".log")
         return log.read_text() if log.is_file() else ""
+    compiler = Path(proc.args[0]).name
     try:
-        text, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        text, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc took more than {NVCC_TIMEOUT_S} s building {out.name}")
+        raise RuntimeError(f"{compiler} took more than {BUILD_TIMEOUT_S} s building {out.name}")
     if proc.returncode != 0 or not tmp.is_file():
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {out.name}:\n{text}"
+            f"{compiler} failed (exit {proc.returncode}) building {out.name}:\n{text}"
         )
     out.with_suffix(".log").write_text(text)
     os.replace(tmp, out)
@@ -115,4 +135,15 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     out, tmp, proc = start_build(name)
     finish_build(out, tmp, proc)
+    return ctypes.CDLL(str(out))
+
+
+@functools.cache
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``native/<name>.cpp``, built with ``CXX``
+    at first use."""
+    src = NATIVE / f"{name}.cpp"
+    out = _hashed(name, (*CXX, *CXX_FLAGS), [src])
+    if not out.is_file():
+        finish_build(*_spawn(out, [*CXX, *CXX_FLAGS], src))
     return ctypes.CDLL(str(out))

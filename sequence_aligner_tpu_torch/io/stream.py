@@ -1,18 +1,16 @@
-"""Streamed FASTA input: chunked scan and encode with O(chunk) host memory.
+"""Streamed FASTA input in Python: chunked scan and encode with O(chunk)
+host memory.
 
-Port of ``sequence_aligner_tpu/io/stream.py`` in pure Python, with the
-semantics of the JAX engine's default reader, the C++ mmap reader in
-``native/fastio.cpp`` (not ported): the file must start with ``>``, a
-record starts at a ``>`` that begins a line, and a sequence line loses
-its newline and every carriage return but keeps any other byte (trailing
-blanks are bases, encoded as code 0):
+The plain version of the native chunk reader (``native/fastio.cpp``'s
+``fasta_scan`` and ``fasta_encode_chunk``, which ``Overlapper.run_stream_arrays``
+reads with), with its semantics: the file must start with ``>``, a record
+starts at a ``>`` that begins a line, and a sequence line loses its newline
+and every carriage return but keeps any other byte (trailing blanks are
+bases, encoded as code 0):
 
   * ``fasta_scan``          — one cheap pass -> (n_reads, max_len);
   * ``iter_encoded_chunks`` — generator of ([m, l_max] int8 code matrix,
                               [m] int32 lengths) chunks in file order.
-
-``models.overlapper.Overlapper.run_stream_arrays`` copies each chunk into
-its row slice of the device-resident read matrix.
 """
 
 from __future__ import annotations

@@ -23,6 +23,15 @@ The JAX engine also has a monolithic both-phase path it picks for small
 inputs on the TPU; both give the same records, so the port keeps only the
 split path.  The pair table, the per-pair dove lengths and the alignment
 results stay on the device until the valid records are fetched once.
+
+``fast_dovetail=False`` aligns every candidate with the quadratic full
+Smith-Waterman of ``ops.align_lax`` instead (the reference's
+``--quadratic-align``), in chunks whose int8 traceback codes stay within
+``QUAD_DIRS_BUDGET`` bytes; the records do not depend on the chunk size.
+
+A FASTA path is read by the native reader (``native.fasta_encode_native``,
+and its scan and chunk reader for ``run_stream_arrays``), the JAX engine's
+own reader, so both engines take the same bytes as the same reads.
 """
 
 from __future__ import annotations
@@ -40,20 +49,29 @@ import torch
 from sequence_aligner_tpu_torch.core.records import OverlapRecord, Sequence
 from sequence_aligner_tpu_torch.core.settings import AlignSettings
 from sequence_aligner_tpu_torch.device import resolve_device
-from sequence_aligner_tpu_torch.io.fasta import read_fasta
-from sequence_aligner_tpu_torch.io.stream import fasta_scan, iter_encoded_chunks
-from sequence_aligner_tpu_torch.ops.align_fused import (
-    check_pair_indices, pack_reads_le, phase1_indexed, phase2_indexed, phase2_results,
+from sequence_aligner_tpu_torch.native import (
+    fasta_encode_chunks_native, fasta_encode_native, fasta_scan_native,
 )
+from sequence_aligner_tpu_torch.ops.align_fused import (
+    check_pair_indices, fast_dovetail_batch, pack_reads_le, phase1_indexed, phase2_indexed,
+    phase2_results,
+)
+from sequence_aligner_tpu_torch.ops.align_lax import OUT_KEYS, local_align_batch
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
 from sequence_aligner_tpu_torch.ops.kmer import kmer_scan
 from sequence_aligner_tpu_torch.ops.pairgen import (
     candidate_pairs_stream, plan_totals, sort_occurrences,
 )
+from sequence_aligner_tpu_torch.utils.debug import debug_enabled, printdb, time_report
+from sequence_aligner_tpu_torch.utils.profiling import device_memory_stats
 
 # Per-class raw-stream ceiling for one device (the JAX engine's bound; its
 # int64 keys alone would be 16 GB here).
 _MAX_STREAM = (2**31 - 1) * 8 // 9
+# bytes of int8 traceback codes one chunk of the quadratic path may hold:
+# (la_max + 1)^2 a pair, 10,201 at 100 bp, so a 2^20-pair batch would
+# need 10.7 GB
+QUAD_DIRS_BUDGET = 4 << 30
 
 
 def _pow2_at_least(n: int, floor: int = 1024) -> int:
@@ -166,15 +184,18 @@ class Overlapper:
     """Overlap engine on one device (``"cuda"`` unless the caller asks for
     ``"cpu"``, where the kernels' plain versions run).
 
-    ``prescreen=True`` turns on the diagonal-coherence candidate prescreen
-    (``ops.pairgen``; empirically lossless, off by default, as in the JAX
-    engine)."""
+    ``fast_dovetail=False`` takes the quadratic full Smith-Waterman in
+    place of the two-phase banded dovetail aligner.  ``prescreen=True``
+    turns on the diagonal-coherence candidate prescreen (``ops.pairgen``;
+    empirically lossless, off by default, as in the JAX engine)."""
 
-    def __init__(self, settings: AlignSettings, *, batch_size: int = 1 << 20,
-                 prescreen: bool = False, device: str | torch.device = "cuda"):
+    def __init__(self, settings: AlignSettings, *, fast_dovetail: bool = True,
+                 batch_size: int = 1 << 20, prescreen: bool = False,
+                 device: str | torch.device = "cuda"):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.s = settings
+        self.fast_dovetail = fast_dovetail
         self.batch_size = batch_size
         self.prescreen = prescreen
         self.device = resolve_device(device)
@@ -251,6 +272,7 @@ class Overlapper:
         occ_s = sort_occurrences(occ)
         with self._stage("pairgen.plan"):
             h_tot, t_tot = plan_totals(occ_s, **self._geom())
+        printdb(f"pairgen plan: h_total={h_tot} t_total={t_tot}")
         if max(h_tot, t_tot) > _MAX_STREAM:
             raise RuntimeError(
                 f"raw candidate stream too large for one device (head={h_tot}, "
@@ -286,9 +308,15 @@ class Overlapper:
         empty = tuple(np.zeros(0, np.int32) for _ in range(4))
         if n_pairs == 0:
             return empty
+        lengths_d = torch.from_numpy(lengths).to(dev)
+        if not self.fast_dovetail:
+            a_all = (lead_d[:n_pairs] - 1).int()
+            b_all = (trail_d[:n_pairs] - 1).int()
+            found = [torch.stack([a + 1, b + 1, r["ahg"], r["bhg"]], dim=1).int()[r["valid"]]
+                     for _, a, b, r in self._quadratic_chunks(bases_d, lengths_d, a_all, b_all)]
+            return self._fetch_valid(found, n_pairs)
         packed = pack_reads_le(bases_d)
         la_max = bases_d.shape[1]
-        lengths_d = torch.from_numpy(lengths).to(dev)
         wtab_host = np.asarray([s.band_width(l) for l in range(la_max + 1)], np.int32)
         widths = sorted(set(int(w) for w in wtab_host[lengths[lengths > 0]]))
         cm = s.cm_tuple()
@@ -306,7 +334,6 @@ class Overlapper:
         # them), so one long read sends only its own group to a wider instance
         # (lengths ascending: the longest of each width is written last)
         rows_w = {int(wtab_host[l]): int(l) for l in np.flatnonzero(np.bincount(real))}
-        bs = self.batch_size
         p1kw = dict(gO=s.gap_open, gE=s.gap_extend, cm_tuple=cm, ulen=ulen,
                     indices_checked=True)
         vkw = dict(min_identity=s.min_identity, min_overlap=s.min_overlap,
@@ -319,6 +346,7 @@ class Overlapper:
             cnt = int(sel.numel())
             if cnt == 0:
                 continue
+            bs = self._batch(cnt)
             a_w, b_w = a_all[sel], b_all[sel]
             # pass A: phase 1 on every pair; dove length, -1 for duds
             dlen = torch.empty(cnt, dtype=torch.int32, device=dev)
@@ -364,10 +392,96 @@ class Overlapper:
                     found.append(torch.stack(
                         [a_idx + 1, b_idx + 1, ahg, bhg], dim=1)[valid])
                 toff += tcnt
+        return self._fetch_valid(found, n_pairs)
+
+    def _fetch_valid(self, found: list[torch.Tensor], n_pairs: int):
+        """The valid [n, 4] rows of every launch -> four host int32 arrays."""
         self.stats.n_alignments = n_pairs
         rows = torch.cat(found).cpu().numpy() if found else np.zeros((0, 4), np.int32)
         self.stats.n_valid = int(rows.shape[0])
         return tuple(np.ascontiguousarray(rows[:, i]) for i in range(4))
+
+    def _batch(self, count: int) -> int:
+        """Pairs a launch takes out of ``count``: the JAX engine's batch
+        (``_bs_pblk``), a power of two of at least 128 and at most
+        ``batch_size`` rounded up, so ``batch_size=1`` gives 128 pairs."""
+        return _pow2_at_least(min(self.batch_size, _pow2_at_least(count, 1024)), 128)
+
+    # ---- the quadratic path ----
+    def quad_chunk(self, n_pairs: int, la_max: int) -> int:
+        """Pairs in one chunk of the quadratic path: the engine's batch, cut
+        so that the chunk's traceback codes, (la_max + 1)^2 bytes a pair,
+        stay within ``QUAD_DIRS_BUDGET``."""
+        return max(1, min(self._batch(n_pairs), QUAD_DIRS_BUDGET // (la_max + 1) ** 2))
+
+    def _quadratic_chunks(self, bases_d, lengths_d, a_idx, b_idx):
+        """Full Smith-Waterman of pairs (a_idx[p], b_idx[p]) (0-based rows of
+        the read matrix), chunk by chunk; yields (first pair, a rows, b rows,
+        result dict) per chunk."""
+        s = self.s
+        la_max = bases_d.shape[1]
+        n = a_idx.numel()
+        bs = self.quad_chunk(n, la_max)
+        self.stats.dp_cells += n * (la_max + 1) ** 2
+        for lo in range(0, n, bs):
+            a, b = a_idx[lo : lo + bs].long(), b_idx[lo : lo + bs].long()
+            yield lo, a, b, local_align_batch(
+                bases_d[a], lengths_d[a], bases_d[b], lengths_d[b], cm=s.cost_matrix,
+                gO=s.gap_open, gE=s.gap_extend, min_identity=s.min_identity,
+                min_overlap=s.min_overlap, max_ignore=s.max_ignore, la_max=la_max,
+                lb_max=la_max)
+
+    # ---- host-facing stages (the CLI's bench modes) ----
+    def _candidates(self, occ, bases: np.ndarray | None = None,
+                    lengths: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """Host candidate list (lead, trail) in canonical order."""
+        if occ["hash"].numel() == 0:  # e.g. every read shorter than k
+            return np.zeros(0, np.int32), np.zeros(0, np.int32)
+        out, k = self._candidates_dev(occ)
+        lead = out["lead"][:k].cpu().numpy().astype(np.int32)
+        trail = out["trail"][:k].cpu().numpy().astype(np.int32)
+        order = np.lexsort((trail, lead))
+        return lead[order], trail[order]
+
+    def _align(self, bases: np.ndarray, lengths: np.ndarray, lead: np.ndarray,
+               trail: np.ndarray) -> dict[str, np.ndarray]:
+        """Per-pair results (``OUT_KEYS``; int32, ``valid`` bool) of the
+        engine's aligner over an explicit pair list of 1-based read ids."""
+        s = self.s
+        npairs = len(lead)
+        out = {k: np.zeros(npairs, dtype=np.int32) for k in OUT_KEYS if k != "valid"}
+        out["valid"] = np.zeros(npairs, dtype=bool)
+        if npairs == 0:
+            return out
+        dev = self.device
+        a_h = np.asarray(lead, np.int64) - 1
+        b_h = np.asarray(trail, np.int64) - 1
+        if min(a_h.min(), b_h.min()) < 0 or max(a_h.max(), b_h.max()) >= bases.shape[0]:
+            raise ValueError("pair ids outside the read set")
+        bases_d = torch.from_numpy(np.ascontiguousarray(bases)).to(dev)
+        lengths_d = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(dev)
+        a_idx = torch.from_numpy(a_h.astype(np.int32)).to(dev)
+        b_idx = torch.from_numpy(b_h.astype(np.int32)).to(dev)
+
+        def put(sel, res):
+            for k in OUT_KEYS:
+                out[k][sel] = res[k].cpu().numpy().astype(out[k].dtype)
+
+        if not self.fast_dovetail:
+            for lo, a, _, res in self._quadratic_chunks(bases_d, lengths_d, a_idx, b_idx):
+                put(slice(lo, lo + a.numel()), res)
+            return out
+        widths = np.asarray([s.band_width(int(l)) for l in np.asarray(lengths)[a_h]])
+        for w in np.unique(widths).tolist():
+            sel = np.flatnonzero(widths == w)
+            sel_d = torch.from_numpy(sel).to(dev)
+            a, b = a_idx[sel_d].long(), b_idx[sel_d].long()
+            put(sel, fast_dovetail_batch(
+                bases_d[a], lengths_d[a], bases_d[b], lengths_d[b], cm_tuple=s.cm_tuple(),
+                gO=s.gap_open, gE=s.gap_extend, min_identity=s.min_identity,
+                min_overlap=s.min_overlap, max_ignore=s.max_ignore, la_max=bases.shape[1],
+                width=w))
+        return out
 
     # ---- full pipeline ----
     def run(self, path_or_seqs: str | list[Sequence]) -> list[OverlapRecord]:
@@ -380,10 +494,12 @@ class Overlapper:
         self.stats = OverlapStats()
         self.stage_s = {}
         with self._stage("encode"):
-            seqs = read_fasta(path_or_seqs) if isinstance(path_or_seqs, str) else path_or_seqs
-            bases, lengths = encode_reads(seqs)
+            if isinstance(path_or_seqs, str):
+                bases, lengths = fasta_encode_native(path_or_seqs)
+            else:
+                bases, lengths = encode_reads(path_or_seqs)
             bases_d = torch.from_numpy(bases).to(self.device)
-        return self._run_encoded(bases_d, lengths, len(seqs))
+        return self._run_encoded(bases_d, lengths, bases.shape[0])
 
     def run_stream_arrays(self, path: str, *, chunk_reads: int = 1 << 15):
         """Streamed variant of ``run_arrays`` for a FASTA file: the
@@ -396,12 +512,12 @@ class Overlapper:
         self.stats = OverlapStats()
         self.stage_s = {}
         with self._stage("encode"):
-            n_input, l_max = fasta_scan(path)
+            n_input, l_max = fasta_scan_native(path)
             bases_d = torch.zeros((n_input, l_max), dtype=torch.int8, device=self.device)
             lengths = np.zeros(n_input, np.int32)
             lo = 0
-            for bases_c, lens_c in iter_encoded_chunks(path, min(chunk_reads, max(n_input, 1)),
-                                                       l_max):
+            for bases_c, lens_c in fasta_encode_chunks_native(
+                    path, min(chunk_reads, max(n_input, 1)), l_max):
                 m = bases_c.shape[0]
                 bases_d[lo : lo + m].copy_(torch.from_numpy(bases_c))
                 lengths[lo : lo + m] = lens_c
@@ -421,6 +537,7 @@ class Overlapper:
             else:
                 out, n_pairs = self._candidates_dev(occ)
             self.stats.n_candidate_pairs = n_pairs
+        printdb(f"pairgen: {n_pairs} candidate pairs")
         del occ
         with self._stage("align"):
             if n_pairs:
@@ -431,4 +548,7 @@ class Overlapper:
         with self._stage("emit"):
             order = np.lexsort((trail, lead))
             arrs = tuple(np.ascontiguousarray(c[order]) for c in (lead, trail, ahg, bhg))
+        printdb(time_report(self.stage_s))
+        if debug_enabled():
+            printdb(f"device memory: {device_memory_stats()}")
         return arrs

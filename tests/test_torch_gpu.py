@@ -291,3 +291,40 @@ def test_stream_and_prescreen_on_the_card_equal_the_cpu(cuda, tmp_path):
         assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
         n_cand.append(ov.stats.n_candidate_pairs)
     assert n_cand[1] < n_cand[0]  # the screen dropped candidates on the card
+
+
+@pytest.mark.parametrize("n_reads,batch_size", [(512, 1 << 20), (2048, 1 << 20), (300, 1)])
+def test_quadratic_engine_on_the_card_equals_the_cpu(cuda, n_reads, batch_size):
+    """fast_dovetail=False (torch ops on the card) at two sizes and with
+    batch_size=1 (chunks of 128 pairs)."""
+    seqs = simulated_reads(n_reads, 100, coverage=20.0, error_rate=0.01, seed=n_reads)
+    ov = Overlapper(S, fast_dovetail=False, batch_size=batch_size, device=cuda)
+    got = ov.run_arrays(seqs)
+    want = Overlapper(S, fast_dovetail=False, batch_size=batch_size,
+                      device="cpu").run_arrays(seqs)
+    assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
+    if batch_size == 1:
+        assert ov.quad_chunk(ov.stats.n_candidate_pairs, 100) == 128
+
+
+# the four layouts on which the native reader and a text reader disagree
+# ('\r>' in a body, a header ended by '\r', a 0xFF byte, a UTF-8 letter),
+# each planted in a FASTA of 600 simulated reads
+_PLANTS = {
+    "cr_gt": lambda r: r[:-1] + b"\r",
+    "cr_header": lambda r: r.replace(b"\n", b"\r", 1),
+    "byte_ff": lambda r: r[:30] + b"\xff" + r[31:],
+    "utf8": lambda r: r[:30] + "é".encode() + r[31:],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_PLANTS))
+def test_run_arrays_path_on_the_card_equals_the_cpu(cuda, tmp_path, layout):
+    recs = [b">r%d\n%s\n" % (q.id, q.seq.encode())
+            for q in simulated_reads(600, 100, coverage=20.0, error_rate=0.01, seed=11)]
+    recs[9] = _PLANTS[layout](recs[9])
+    path = tmp_path / "r.fasta"
+    path.write_bytes(b"".join(recs))
+    got = Overlapper(S, device=cuda).run_arrays(str(path))
+    want = Overlapper(S, device="cpu").run_arrays(str(path))
+    assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
