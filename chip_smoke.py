@@ -56,6 +56,18 @@ nvcc, then, each phase fatal on failure:
      the exact 16-column instances), then timed there.  Prints reads, candidate
      pairs, records, the raw stream totals, stage times, reads/s and peak
      device memory;
+  6b. the sharded engine on the same reads: ``parallel.shard.sharded_overlap``
+     at a world size of 1 over NCCL (the k-mer exchange, the read fetch and
+     the final gather are NCCL collectives on the card), with the launch
+     counters set to 0 just before and read just after (both kernels must
+     launch); its records must equal phase 6's.  Each kernel is held against
+     its plain version on the first 65,536 pairs of its largest launch there,
+     then timed.  Then ``python -m sequence_aligner_tpu_torch.cli --engine
+     sharded`` and ``python -m sequence_aligner_tpu_torch.dist.worker
+     --nprocs 1`` on the FASTA, at once: both OVL files must equal phase 6's
+     records written by ``write_ovl_arrays``.  Prints one ``{"sharded": ...}``
+     JSON line (wall, stage split, records, launches, peak device memory, the
+     card);
   7. the prescreen on the card: phase 2's reads through the screened and
      the unscreened engine, then each on 2,048 reads with planted repeats
      on the card and on the CPU (equal arrays; the screen must drop
@@ -85,6 +97,7 @@ import contextlib
 import faulthandler
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -311,12 +324,13 @@ def kernel_entry(name, args, kw, p, *, launches, max_err, sms, sm_mhz, tag="",
     )
 
 
-def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> list[dict]:
+def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float):
     """Phase 6: ``run_arrays`` and ``run_stream_arrays`` on the FASTA at
     ``path``; both kernels must launch in each run, the records must be
     equal and match the JAX engine's counts, and each kernel's largest
     launch in the ``run_arrays`` run must equal its plain version.  Returns
-    the kernels' entries of the kernels line for this path."""
+    the kernels' entries of the kernels line for this path and the
+    records."""
     import numpy as np
     import torch
 
@@ -383,6 +397,110 @@ def large_input_phase(path: str, n_reads: int, s, sms: int, sm_mhz: float) -> li
         err = check_real_pairs(name, args, kw, p, "the 1M run's largest launch")
         entries.append(kernel_entry(name, args, kw, p, launches=res["run_arrays"]["launches"][name],
                                     max_err=err, sms=sms, sm_mhz=sm_mhz, tag="_1m"))
+    return entries, a
+
+
+def sharded_phase(dev, path: str, reads, want, s, card: str, sms: int,
+                  sm_mhz: float) -> list[dict]:
+    """Phase 6b: ``sharded_overlap`` on ``reads`` (the FASTA at ``path``) at a
+    world size of 1 over NCCL; both kernels must launch, the records must
+    equal ``want`` (phase 6's), each kernel's largest launch must equal its
+    plain version.  Then the CLI's ``--engine sharded`` and the worker on the
+    file, at once, must write ``want``'s bytes.  Returns the kernels'
+    entries of the kernels line for this path."""
+    import numpy as np
+    import torch
+
+    from sequence_aligner_tpu_torch.io.ovl import write_ovl_arrays
+    from sequence_aligner_tpu_torch.ops import align_fused as af
+    from sequence_aligner_tpu_torch.ops.encode import encode_reads
+    from sequence_aligner_tpu_torch.parallel.shard import sharded_overlap
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = {}
+    with largest_launches() as captured:
+        reset_counts()
+        t0 = time.perf_counter()
+        recs = sharded_overlap(reads, s, device=dev, stats=stats)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        by_instance = dict(af.instance_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    log(f"  sharded_overlap: world {stats['world']} over {stats['backend']}, records "
+        f"{len(recs)}, kept pairs by rank {stats['pairs_by_rank']}, wall {wall:.3f} s -> "
+        f"{len(reads) / wall:.1f} reads/s; peak device memory {peak:.1f} MiB; launches "
+        f"{launches}; by instance {by_instance}")
+    # the host parts the stages do not split out: the reads' encode (inside
+    # `plan`), then the group's set-up and the records (outside the stages)
+    t0 = time.perf_counter()
+    encode_reads(reads)
+    encode_s = time.perf_counter() - t0
+    other_s = wall - sum(stats["stage_s"].values())
+    log("  sharded_overlap stage times (s): " + json.dumps(stats["stage_s"])
+        + f"; encode_reads alone {encode_s:.3f} s (host, part of plan); outside the "
+        f"stages (group set-up, {len(recs)} OverlapRecords) {other_s:.3f} s")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if (stats["backend"], stats["world"]) != (backend, 1):
+        raise AssertionError(f"the sharded engine ran over {stats['backend']} at world "
+                             f"{stats['world']}, not {backend} at 1")
+    if min(launches.get("phase1", 0), launches.get("phase2", 0)) < 1:
+        raise AssertionError(f"sharded_overlap: a kernel of the path never launched: {launches}")
+    got = tuple(np.fromiter((getattr(r, f) for r in recs), np.int32, len(recs))
+                for f in ("id_a", "id_b", "ahg", "bhg"))
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("sharded_overlap's records differ from the single-device engine's")
+    log(f"  equal: sharded_overlap and run_arrays, {len(recs)} records")
+    entries = []
+    for name in ("phase1", "phase2"):
+        args, kw, p = captured[name]
+        err = check_real_pairs(name, args, kw, p, "the sharded 1M run's largest launch")
+        entries.append(kernel_entry(name, args, kw, p, launches=launches[name], max_err=err,
+                                    sms=sms, sm_mhz=sm_mhz, tag="_sharded"))
+    tmp = os.path.dirname(path)
+    want_ovl, cli_ovl, worker_ovl = (os.path.join(tmp, f) for f in
+                                     ("want.ovl", "cli_sharded.ovl", "worker.ovl"))
+    write_ovl_arrays(want, want_ovl)
+    with socket.socket() as sk:  # a free port for the worker's rendezvous
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    k = str(s.kmer_size)
+    cmds = {
+        "cli": ["sequence_aligner_tpu_torch.cli", "-i", path, "-o", cli_ovl, "--engine",
+                "sharded", "--amos-parity", "-k", k, "--device", dev.type],
+        "worker": ["sequence_aligner_tpu_torch.dist.worker", "--coordinator",
+                   f"127.0.0.1:{port}", "--nprocs", "1", "--pid", "0", "-i", path, "-o",
+                   worker_ovl, "--amos-parity", "--kmer-size", k, "--device", dev.type],
+    }
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen([sys.executable, "-m", *c], cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for n, c in cmds.items()}
+    out = {}
+    try:
+        for n, pr in procs.items():
+            out[n] = pr.communicate(timeout=300)
+            if pr.returncode != 0:
+                raise AssertionError(f"{n} exited {pr.returncode}: {out[n][1][-2000:]}")
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    procs_s = time.perf_counter() - t0
+    ref = Path(want_ovl).read_bytes()
+    for n, f in (("cli", cli_ovl), ("worker", worker_ovl)):
+        if Path(f).read_bytes() != ref:
+            raise AssertionError(f"the {n}'s OVL differs from the single-device engine's")
+    log(f"  equal: CLI --engine sharded and dist.worker --nprocs 1 OVL files and the "
+        f"single-device records ({len(ref)} bytes); both processes {procs_s:.1f} s; worker: "
+        + out["worker"][1].strip().splitlines()[-1])
+    log(json.dumps({"sharded": dict(
+        reads=len(reads), world=stats["world"], backend=stats["backend"], wall_s=wall,
+        stage_s=stats["stage_s"], encode_reads_s=encode_s, outside_stages_s=other_s,
+        records=len(recs), pairs_by_rank=stats["pairs_by_rank"],
+        launches={n: launches[n] for n in ("phase1", "phase2")}, peak_mib=peak,
+        cli_and_worker_s=procs_s, card=card)}))
     return entries
 
 
@@ -902,11 +1020,18 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             path = os.path.join(tmp, "reads_1m.fasta")
-            write_seq(simulated_reads(N_LARGE, READ_LEN, coverage=COVERAGE_LARGE, seed=0),
-                      path)
+            reads_1m = simulated_reads(N_LARGE, READ_LEN, coverage=COVERAGE_LARGE, seed=0)
+            write_seq(reads_1m, path)
             log(f"simulated reads written as FASTA (host set-up): "
                 f"{time.perf_counter() - t0:.2f} s")
-            kernels += large_input_phase(path, N_LARGE, s16, sms, sm_mhz)
+            entries, arrs_1m = large_input_phase(path, N_LARGE, s16, sms, sm_mhz)
+            kernels += entries
+
+            # ---- 6b. the sharded engine on the same reads ----
+            with Stage("sharded engine: sharded_overlap, 1,000,000 x 100 bp, one NCCL "
+                       "rank; CLI --engine sharded and dist.worker"):
+                kernels += sharded_phase(dev, path, reads_1m, arrs_1m, s16, card, sms, sm_mhz)
+            del reads_1m, arrs_1m
 
     # ---- 7. prescreen ----
     with Stage("prescreen on the card, 32,000 reads; card against CPU, 2,048 "

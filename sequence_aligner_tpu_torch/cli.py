@@ -12,9 +12,11 @@ reference's threading toggles map onto engines as in the JAX CLI:
 the device engine; ``--single-align`` aligns batches of one pair (the engine
 clamps them to 128), ``--block-align`` full batches; ``--quadratic-align``
 the full Smith-Waterman, ``--linear-align`` the two-phase banded dovetail.
-Two modes of the JAX CLI are not ported and are refused: ``--pipeline``
-(it drives the external AMOS binaries) and ``--engine sharded`` (the
-multi-device engine).
+``--engine sharded`` runs the sharded engine (``parallel.shard``) as one
+rank on ``--device``, as the JAX CLI runs it over the local devices; its
+multi-process form is ``python -m sequence_aligner_tpu_torch.dist.worker``.
+One mode of the JAX CLI is not ported and is refused: ``--pipeline`` (it
+drives the external AMOS binaries).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from sequence_aligner_tpu_torch.core.settings import AlignSettings, simple_match
 from sequence_aligner_tpu_torch.io.hoxd import read_hoxd
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
 
-HELP = """sequence_aligner_tpu_torch — overlap engine on one NVIDIA GPU (PyTorch + CUDA)
+HELP = """sequence_aligner_tpu_torch — overlap engine on NVIDIA GPUs (PyTorch + CUDA)
 
 Usage: python -m sequence_aligner_tpu_torch.cli -i <input.seq> [options]
 
@@ -52,7 +54,7 @@ Alignment options:
 Engine options:
   --st-hash/--mt-hash --st-align/--mt-align --block-align/--single-align
   --quadratic-align/--linear-align
-  --engine device|oracle (sharded is not ported)   --batch-size N (1048576)
+  --engine device|oracle|sharded    --batch-size N (1048576)
   --prescreen / --no-prescreen  diagonal-coherence candidate prescreen
                        (device engine; empirically lossless, off by default)
   --device cuda|cpu    (cuda)
@@ -122,10 +124,7 @@ def _fail(msg: str):
 
 
 def _engine(v: str) -> str:
-    if v == "sharded":
-        _fail("--engine sharded is not ported to sequence_aligner_tpu_torch "
-              "(the multi-device engine); use --engine device or oracle")
-    if v not in ("device", "oracle"):
+    if v not in ("device", "oracle", "sharded"):
         raise ValueError(v)
     return v
 
@@ -248,6 +247,10 @@ def _calc_overlaps(o: Options, s: AlignSettings) -> int:
         # the JAX CLI's reader: read_fasta, then the reads as a list
         arrs = _overlapper(o, s, prescreen=o.prescreen).run_arrays(_read(o))
         return write_ovl_arrays(arrs, o.output or None)
+    if o.engine == "sharded":
+        from sequence_aligner_tpu_torch.parallel.shard import sharded_overlap
+
+        return write_ovl(sharded_overlap(_read(o), s, device=o.device), o.output or None)
     from sequence_aligner_tpu_torch.oracle.overlap import oracle_overlaps
 
     recs = oracle_overlaps(o.input, s, fast_dovetail=o.fast_dovetail)

@@ -14,8 +14,10 @@ become sort and segment ops:
      ``plan_totals`` — expanded in chunks so memory stays bounded;
   4. pair order follows addKmerPair (src/KmerTable.scala:57-80): self pairs
      drop and the occurrence with strictly greater loc leads;
-  5. pairs aggregate by one sort of int64 keys; run lengths inside
-     [min_collisions, max_collisions] are kept.
+  5. pairs aggregate by one sort of int64 keys (``pair_counts``); run
+     lengths inside [min_collisions, max_collisions] are kept
+     (``band_pairs``).  The sharded engine sums each pair's counts across
+     ranks between the two, so the band sees global counts.
 
 The key is (lead << 32 | trail), one int64 for any int32 read id: the JAX
 package's two branches (a 16-bit packed key for ids that fit it, the
@@ -138,23 +140,20 @@ def _screen_passes(keys: torch.Tensor, diags: torch.Tensor, cnt: torch.Tensor,
     return (cm[ends - 1] - cm[starts]) > 0
 
 
-def candidate_pairs_stream(
-    occ_s, *, head_edge, tail_edge, mid_lead, mid_tail,
-    min_collisions: int, max_collisions: int,
-    cap_head: int, cap_tail: int, cap_out: int,
+def pair_counts(
+    occ_s, *, head_edge, tail_edge, mid_lead, mid_tail, cap_head: int, cap_tail: int,
     prescreen_w: int | None = None, chunk: int = EXPAND_CHUNK,
 ):
-    """Candidate pairs from hash-sorted occurrences (``sort_occurrences``).
+    """Run-length counts of the raw pair keys, before the collision band.
 
-    Returns dict(lead, trail, count) — [cap_out] int32, the kept pairs in
-    (lead, trail) order followed by zeros — and n_out, h_tot, t_tot (ints)
-    and overflow (bool), as the JAX function does: the streams cover their
-    first cap_head / cap_tail slots, and overflow is set when a stream or
-    the kept pairs exceed their capacity.
-
-    ``prescreen_w`` turns on the diagonal-coherence prescreen with that
-    window; the occurrences must then carry ``pos`` and read ids up to
-    65,535."""
+    Returns (uniq, counts, h_tot, t_tot): the distinct int64 keys (lead <<
+    32 | trail, or lead << 16 | trail under the prescreen) in ascending
+    order, the collisions of each (int64), and the full raw stream lengths.
+    The streams cover their first cap_head / cap_tail slots.  With
+    ``prescreen_w`` the runs of two or more collisions that fail the
+    diagonal-coherence screen are dropped here (the occurrences must then
+    carry ``pos`` and read ids up to 65,535); the band alone drops the
+    rest."""
     rid = occ_s["read_id"]
     dev = rid.device
     screen = bool(prescreen_w)
@@ -183,17 +182,54 @@ def candidate_pairs_stream(
     else:
         keys = torch.sort(keys).values
     uniq, cnt = torch.unique_consecutive(keys, return_counts=True)
-    keep = (cnt >= int(min_collisions)) & (cnt <= int(max_collisions))
     if screen:  # size-1 runs exempt
-        keep &= _screen_passes(keys, diags, cnt, int(prescreen_w)) | (cnt < 2)
-    del keys
+        ok = _screen_passes(keys, diags, cnt, int(prescreen_w)) | (cnt < 2)
+        uniq, cnt = uniq[ok], cnt[ok]
+    return uniq, cnt, h_tot, t_tot
+
+
+def band_pairs(uniq, cnt, *, min_collisions: int, max_collisions: int, cap_out: int,
+               shift: int = 32):
+    """The collision band and compaction of ``pair_counts``' runs: returns
+    dict(lead, trail, count) — [cap_out] int32, the runs with
+    min_collisions <= count <= max_collisions in key order, then zeros — and
+    n_out, the kept runs (which may pass cap_out)."""
+    keep = (cnt >= int(min_collisions)) & (cnt <= int(max_collisions))
     uniq, cnt = uniq[keep], cnt[keep]
     n_out = int(uniq.numel())
     m = min(n_out, cap_out)
-    out = {f: torch.zeros(cap_out, dtype=torch.int32, device=dev)
+    out = {f: torch.zeros(cap_out, dtype=torch.int32, device=uniq.device)
            for f in ("lead", "trail", "count")}
     out["lead"][:m] = (uniq[:m] >> shift).to(torch.int32)
     out["trail"][:m] = (uniq[:m] & ((1 << shift) - 1)).to(torch.int32)
     out["count"][:m] = cnt[:m].to(torch.int32)
-    overflow = h_tot > cap_head or t_tot > cap_tail or n_out > cap_out
-    return dict(out, n_out=n_out, h_tot=h_tot, t_tot=t_tot, overflow=overflow)
+    return dict(out, n_out=n_out)
+
+
+def candidate_pairs_stream(
+    occ_s, *, head_edge, tail_edge, mid_lead, mid_tail,
+    min_collisions: int, max_collisions: int,
+    cap_head: int, cap_tail: int, cap_out: int,
+    prescreen_w: int | None = None, chunk: int = EXPAND_CHUNK,
+):
+    """Candidate pairs from hash-sorted occurrences (``sort_occurrences``):
+    ``pair_counts``, then ``band_pairs``.
+
+    Returns dict(lead, trail, count) — [cap_out] int32, the kept pairs in
+    (lead, trail) order followed by zeros — and n_out, h_tot, t_tot (ints)
+    and overflow (bool), as the JAX function does: the streams cover their
+    first cap_head / cap_tail slots, and overflow is set when a stream or
+    the kept pairs exceed their capacity.
+
+    ``prescreen_w`` turns on the diagonal-coherence prescreen with that
+    window; the occurrences must then carry ``pos`` and read ids up to
+    65,535."""
+    uniq, cnt, h_tot, t_tot = pair_counts(
+        occ_s, head_edge=head_edge, tail_edge=tail_edge, mid_lead=mid_lead,
+        mid_tail=mid_tail, cap_head=cap_head, cap_tail=cap_tail,
+        prescreen_w=prescreen_w, chunk=chunk)
+    out = band_pairs(uniq, cnt, min_collisions=min_collisions,
+                     max_collisions=max_collisions, cap_out=cap_out,
+                     shift=16 if prescreen_w else 32)
+    overflow = h_tot > cap_head or t_tot > cap_tail or out["n_out"] > cap_out
+    return dict(out, h_tot=h_tot, t_tot=t_tot, overflow=overflow)

@@ -328,3 +328,52 @@ def test_run_arrays_path_on_the_card_equals_the_cpu(cuda, tmp_path, layout):
     got = Overlapper(S, device=cuda).run_arrays(str(path))
     want = Overlapper(S, device="cpu").run_arrays(str(path))
     assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def _mixed_width_reads():
+    """200 reads of 120 and 64 bp (band widths 13 and 8 at k = 8,
+    min_identity 0.9), as tests/test_torch_shard.py builds them."""
+    from sequence_aligner_tpu_torch.pipeline.datasets import shred_genome
+
+    rng = np.random.RandomState(5)
+    genome = "".join("ACTG"[i] for i in rng.randint(0, 4, 3000))
+    a = shred_genome(genome, 100, 120, error_rate=0.01, seed=1)
+    b = shred_genome(genome, 100, 64, error_rate=0.01, seed=2)
+    return [Sequence(i + 1, q.seq) for i, q in enumerate(x for ab in zip(a, b) for x in ab)]
+
+
+@pytest.mark.parametrize("what", ["32k", "mixed_widths"])
+def test_sharded_one_nccl_rank_equals_the_single_device_engine(cuda, what):
+    """The sharded engine at a world size of 1 over NCCL on the card: the
+    single-device engine's records, with both kernels launched on its path."""
+    import torch.distributed as dist
+
+    from sequence_aligner_tpu_torch.parallel.shard import sharded_overlap_arrays
+
+    if what == "32k":
+        s, seqs = S, simulated_reads(32000, 100, coverage=20.0, seed=0)
+    else:
+        s, seqs = AlignSettings.amos_parity(kmer_size=8, min_identity=0.9, max_ignore=200), \
+            _mixed_width_reads()
+    want = Overlapper(s, device=cuda).run_arrays(seqs)
+    af.phase1_launches = af.phase2_launches = 0
+    stats = {}
+    got = sharded_overlap_arrays(seqs, s, device=cuda, stats=stats)
+    assert min(af.phase1_launches, af.phase2_launches) >= 1
+    assert (stats["backend"], stats["world"]) == ("nccl", 1)
+    assert not dist.is_initialized()
+    assert len(got[0]) > 0 and all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_make_group_refuses_gloo_on_the_card(cuda):
+    import torch.distributed as dist
+
+    from sequence_aligner_tpu_torch.parallel.mesh import make_group
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="gloo"):
+            with make_group(device=cuda):
+                pass
+    finally:
+        dist.destroy_process_group()

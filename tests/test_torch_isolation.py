@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from sequence_aligner_tpu_torch import cli
+from sequence_aligner_tpu_torch.core.records import Sequence
 from sequence_aligner_tpu_torch.core.settings import AlignSettings
 from sequence_aligner_tpu_torch.device import resolve_device
+from sequence_aligner_tpu_torch.dist import worker
 from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+from sequence_aligner_tpu_torch.parallel.shard import sharded_overlap
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sequence_aligner_tpu_torch"
@@ -79,6 +82,13 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):
     fasta.write_text(">a\nACGTACGTACGTACGT\n")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["-i", str(fasta), "-o", str(tmp_path / "o.ovl")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["-i", str(fasta), "-o", str(tmp_path / "o.ovl"), "--engine", "sharded"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharded_overlap([Sequence(1, "ACGTACGTACGTACGT")], AlignSettings())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker.main(["-i", str(fasta), "-o", str(tmp_path / "o.ovl")])
+    assert not torch.distributed.is_initialized()  # no group was left behind
     assert resolve_device("cpu").type == "cpu"
     assert np.array_equal(
         Overlapper(AlignSettings(), device="cpu").run_arrays(str(fasta))[0], [])

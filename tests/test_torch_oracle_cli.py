@@ -193,9 +193,7 @@ def test_cli_sleep_for_debug(files, capsys, monkeypatch):
     assert slept == [30, 30]
 
 
-@pytest.mark.parametrize("args,names", [
-    (["--pipeline"], "--pipeline"), (["--engine", "sharded"], "--engine sharded"),
-])
+@pytest.mark.parametrize("args,names", [(["--pipeline"], "--pipeline")])
 def test_cli_refuses_what_is_not_ported(files, args, names, capsys):
     rc, out, err = _run(p_main, ["-i", files["reads"], *args, "--device", "cpu"], capsys)
     assert rc == 1 and out == "" and names in err and "not ported" in err
