@@ -13,19 +13,26 @@ nvcc, then, each phase fatal on failure:
      registers and spill bytes of every kernel instance;
   2. drives the main path — ``Overlapper.run_arrays`` (calc-overlaps) on
      32,000 simulated 100 bp reads at coverage 20 — with every kernel launch
-     counter set to 0 just before and read just after; both kernels must have
-     launched.  Prints reads, candidate pairs, valid records, DP cells, the
-     stage times, reads/s and peak device memory;
+     counter set to 0 just before and read just after.  Its 352,032 pairs
+     (one band-width group, at most 2^21 pairs) take the both-phase
+     ("mono") route: K1 and K2 must each launch exactly once.  Prints the
+     route, reads, candidate pairs, valid records, the stats and DP cells,
+     the stage times, reads/s and peak device memory.  Then the same reads
+     on the split route (``SEQALIGN_ALIGN_MONO=0``, its own counts: both
+     kernels must launch) must give the same records; one more run of each
+     route, in turns, and both routes' walls and align stages are printed;
   3. holds each kernel against its plain PyTorch version on the card: the
-     first 65,536 real pairs of the main path's largest launch (captured
-     from the engine's ``phase1_indexed`` / ``phase2_indexed`` calls),
+     first 65,536 real pairs of the mono route's launches (captured from
+     the engine's ``phase1_indexed`` / ``phase2_indexed`` calls; phase 2's
+     include the phase-1 duds) and of the split route's largest launches,
      random pairs, and mixed-length batches at band widths 12, 16, 20, 31,
      40, 60 and 70 (the exact register instances, the four capacity
      instances and the scratch instance), and scores past 16 bits (the
      scratch instance); outputs must be equal (integers, tolerance 0), and
      ulen = L must equal ulen = 0.  Then times each kernel with CUDA events
-     on the main path's largest launch, and the capacity and general
-     instances on the mixed batch, beside their plain versions and bounds;
+     on the mono route's launches and the split route's largest ones, and
+     the capacity and general instances on the mixed batch, beside their
+     plain versions and bounds;
   3b. reads of 32,768 bp or more: the engine on two 33,000 bp reads offset
      by 10,000 must give the JAX engine's (1, 2, 10000, 10000); both
      kernels' wide instances on two 34,000 bp reads (33,500 rows of phase
@@ -43,6 +50,14 @@ nvcc, then, each phase fatal on failure:
      must be byte-equal, the bench lines equal but for their milliseconds,
      and on the card ``--profile`` must write a trace and ``--debug`` print
      the card's memory;
+  5c. the AMOS pipeline driver: ``run_amos_pipeline(..., overlapper="device")``
+     on phase 4's 2,048 reads on the card, against stand-in AMOS
+     executables written to a temporary directory
+     (``pipeline.standins``), with the launch counters set to 0 just before
+     and read just after (both kernels must launch); the OVL file the
+     stand-in ``bank-transact`` receives must equal phase 4's records
+     written by ``write_ovl``, and the stages must run in the driver's
+     order;
   6. the large-input path at full size: 1,000,000 simulated 100 bp reads at
      coverage 8 (k = 16, amos_parity settings) written as FASTA to a
      temporary directory.  The native reader's (bases, lengths) of the file
@@ -241,6 +256,39 @@ def largest_launches():
         yield captured
     finally:
         ovmod.phase1_indexed, ovmod.phase2_indexed = af.phase1_indexed, af.phase2_indexed
+
+
+@contextlib.contextmanager
+def split_route():
+    """The engine's split align route for the calls inside
+    (``SEQALIGN_ALIGN_MONO=0``, as the JAX engine reads it)."""
+    old = os.environ.get("SEQALIGN_ALIGN_MONO")
+    os.environ["SEQALIGN_ALIGN_MONO"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["SEQALIGN_ALIGN_MONO"]
+        else:
+            os.environ["SEQALIGN_ALIGN_MONO"] = old
+
+
+def timed_run(dev, s, reads, launches=False):
+    """A warm engine's ``run_arrays`` on the card: (engine, arrays, wall s,
+    the launch counts of the run when ``launches``, else None)."""
+    import torch
+
+    from sequence_aligner_tpu_torch.models.overlapper import Overlapper
+
+    ov = Overlapper(s, device=dev)
+    torch.cuda.synchronize(dev)
+    if launches:
+        reset_counts()
+    t0 = time.perf_counter()
+    arrs = ov.run_arrays(reads)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return ov, arrs, wall, launch_counts() if launches else None
 
 
 def pair_slice(args, n):
@@ -637,6 +685,44 @@ def cli_phase(fasta: str, tmp: str) -> None:
         + " | ".join(res["debug", "cuda"][1].splitlines()[-3:]))
 
 
+def pipeline_phase(dev, s, reads, want, tmp: str) -> None:
+    """Phase 5c: ``run_amos_pipeline`` with the device engine on ``reads``
+    on the card, against stand-in AMOS executables; both kernels must
+    launch, and the OVL file the stand-in ``bank-transact`` receives must
+    equal ``want`` (phase 4's records) written by ``write_ovl``."""
+    import json as js
+
+    from sequence_aligner_tpu_torch.core.records import OverlapRecord
+    from sequence_aligner_tpu_torch.io.ovl import write_ovl
+    from sequence_aligner_tpu_torch.pipeline.driver import run_amos_pipeline
+    from sequence_aligner_tpu_torch.pipeline.standins import write_standins
+
+    bins = write_standins(os.path.join(tmp, "amos_bin"))
+    work = os.path.join(tmp, "pipe")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_amos_pipeline(reads, s, work, overlapper="device", amos_bin=bins, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    if min(launches.get("phase1", 0), launches.get("phase2", 0)) < 1:
+        raise AssertionError(f"run_amos_pipeline: a kernel of the path never launched: {launches}")
+    want_ovl = os.path.join(tmp, "pipe_want.ovl")
+    write_ovl(OverlapRecord.bulk_build(*(a.tolist() for a in want)), want_ovl)
+    got = Path(work, "input.bnk", "overlaps.ovl").read_bytes()
+    if not (got and got == Path(want_ovl).read_bytes()):
+        raise AssertionError("the OVL file bank-transact received differs from phase 4's records")
+    stages = [js.loads(ln)[0] for ln in Path(bins, "argv.log").read_text().splitlines()]
+    if stages != ["toAmos_new", "bank-transact", "tigger", "make-consensus", "bank2fasta"]:
+        raise AssertionError(f"the pipeline ran {stages}")
+    if res.n_overlaps != len(want[0]) or res.n_contigs != 1:
+        raise AssertionError(f"run_amos_pipeline: {res.n_overlaps} overlaps, "
+                             f"{res.n_contigs} contigs")
+    log(f"  equal: the OVL file bank-transact received and phase 4's records "
+        f"({res.n_overlaps} records, {len(got)} bytes); stages {stages}; wall {wall:.3f} s, "
+        f"timings " + json.dumps({k: round(v, 4) for k, v in res.timings.items()})
+        + f"; launches {launches}")
+
+
 def quadratic_phase(dev, s, reads, banded_records: int, sms: int, sm_mhz: float) -> None:
     """Phase 9: the quadratic path on 2,048 reads on the card and the CPU
     (equal arrays), then on the main path's reads on the card, timed."""
@@ -842,31 +928,58 @@ def main() -> int:
         log(f"simulated reads (host set-up): {time.perf_counter() - t0:.2f} s")
         warm = ovmod.Overlapper(s, device=dev)
         warm.run_arrays(reads[:2048])  # CUDA context, allocator and library warm-up
+        with split_route():
+            warm.run_arrays(reads[:2048])  # and the split route's own ops
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ov = ovmod.Overlapper(s, device=dev)
         with largest_launches() as captured:
-            reset_counts()
-            t0 = time.perf_counter()
-            arrs = ov.run_arrays(reads)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_counts()
+            ov, arrs, wall, launches = timed_run(dev, s, reads, launches=True)
             by_instance = dict(af.instance_launches)
         peak = torch.cuda.max_memory_allocated()
         st = ov.stats
-        log(f"reads {st.n_reads}  k-mers {st.n_kmers}  candidate pairs "
+        route = "mono" if st.n_phase2_pairs == st.n_candidate_pairs else "split"
+        log(f"route {route} ({st.n_candidate_pairs} pairs in one band-width group, at most "
+            f"2^21)  reads {st.n_reads}  k-mers {st.n_kmers}  candidate pairs "
             f"{st.n_candidate_pairs}  phase-2 pairs {st.n_phase2_pairs}  valid records "
             f"{st.n_valid}  dp_cells {st.dp_cells}  dp_cells_raw {st.dp_cells_raw}")
         log("stage times (s): " + json.dumps({k: round(v, 4) for k, v in ov.stage_s.items()}))
         log(f"run_arrays wall {wall:.3f} s -> {st.n_reads / wall:.1f} reads/s; "
             f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}; by "
             f"instance {by_instance}")
-        if min(launches["phase1"], launches["phase2"]) < 1:
-            return fail(f"a kernel of the main path never launched: {launches}")
+        if (route, launches["phase1"], launches["phase2"]) != ("mono", 1, 1):
+            return fail(f"the main path should take the mono route, one launch of each "
+                        f"kernel: route {route}, launches {launches}")
         if len(arrs[0]) != st.n_valid:
             return fail("main path output has the wrong shape")
         check_records(arrs, N_READS, s)
+        # the split route on the same reads, its launches counted on their own
+        with split_route(), largest_launches() as captured_split:
+            ov_s, arrs_s, wall_s, launches_split = timed_run(dev, s, reads, launches=True)
+        st_s = ov_s.stats
+        if min(launches_split["phase1"], launches_split["phase2"]) < 1:
+            return fail(f"a kernel of the split route never launched: {launches_split}")
+        if not all(np.array_equal(a, b) for a, b in zip(arrs, arrs_s)):
+            return fail("the split route's records differ from the mono route's")
+        log(f"split route: phase-2 pairs {st_s.n_phase2_pairs}  dp_cells {st_s.dp_cells}  "
+            f"dp_cells_raw {st_s.dp_cells_raw}  launches {launches_split}; records equal to the "
+            f"mono route's ({len(arrs_s[0])})")
+        # four more runs of each route, in turns (split, mono, mono, split, twice)
+        walls = {"mono": [wall], "split": [wall_s]}
+        aligns = {"mono": [ov.stage_s["align"]], "split": [ov_s.stage_s["align"]]}
+        for name in ("split", "mono", "mono", "split") * 2:
+            with split_route() if name == "split" else contextlib.nullcontext():
+                o, _, w_, _ = timed_run(dev, s, reads)
+            walls[name].append(w_)
+            aligns[name].append(o.stage_s["align"])
+        for name in ("mono", "split"):
+            log(f"{name} route: walls (s) {[round(x, 4) for x in walls[name]]} (median "
+                f"{np.median(walls[name]):.4f}), align stages (s) "
+                f"{[round(x, 4) for x in aligns[name]]} (median {np.median(aligns[name]):.4f})")
+        log(json.dumps({"routes_32k": dict(
+            walls_s=walls, align_s=aligns, launches={"mono": launches, "split": launches_split},
+            dp_cells={"mono": st.dp_cells, "split": st_s.dp_cells},
+            phase2_pairs={"mono": st.n_phase2_pairs, "split": st_s.n_phase2_pairs},
+            records=len(arrs[0]), card=card)}))
 
     # ---- 3. kernels against their plain versions; timing ----
     max_err = {"phase1": 0, "phase2": 0}
@@ -929,14 +1042,24 @@ def main() -> int:
         a1, kw1, p1n = captured["phase1"]
         a2, kw2, p2n = captured["phase2"]
         n = min(N_CHECK, p1n)
-        check_phase1(pair_slice(a1, n), kw1["la_max"], kw1["w"], "real pairs", ulen=READ_LEN)
-        log(f"  equal: phase 1 on the first {n} pairs of the main path's largest "
-            f"launch, also with ulen={READ_LEN}")
+        p1 = check_phase1(pair_slice(a1, n), kw1["la_max"], kw1["w"], "real pairs",
+                          ulen=READ_LEN)
+        b_len1 = a1[3][a1[2][:n].long()]
+        duds = int(((p1[0] <= 0) | (b_len1 < kw1["w"]) | (p1[4] != 0)).sum())
+        log(f"  equal: phase 1 on the first {n} pairs of the mono route's launch "
+            f"({p1n} pairs; {duds} phase-1 duds among them), also with ulen={READ_LEN}")
         n2 = min(N_CHECK, p2n)
         live = check_phase2(pair_slice(a2, n2), kw2["la_max"], kw2["w"], "real pairs",
                             ulen=READ_LEN)
-        log(f"  equal: phase 2 on the first {n2} pairs of the main path's largest "
-            f"launch (rows {kw2['la_max']}; live {live}), also with ulen={READ_LEN}")
+        dl2 = a2[4][:n2]
+        log(f"  equal: phase 2 on the first {n2} pairs of the mono route's launch ({p2n} "
+            f"pairs, rows {kw2['la_max']}; live {live}; dove length 0 on "
+            f"{int((dl2 == 0).sum())}, {kw2['la_max']} on {int((dl2 == kw2['la_max']).sum())}, "
+            f"B shorter than w on {int((a2[5][a2[2][:n2].long()] < kw2['w']).sum())}), "
+            f"also with ulen={READ_LEN}")
+        split_err = {name: check_real_pairs(name, *captured_split[name],
+                                            "the split route's largest launch")
+                     for name in ("phase1", "phase2")}
         rng = np.random.RandomState(1)
         rnd = simulated_reads(4096, READ_LEN, coverage=COVERAGE, error_rate=0.02, seed=1)
         ia = rng.randint(0, 4096, 16384)
@@ -959,12 +1082,15 @@ def main() -> int:
                 af.phase1_indexed_plain(*mixed_ops, **kwb), "scores past 16 bits")
         log("  equal: phase 1, scores past 16 bits (general instance)")
 
-    with Stage("kernel timing at the main path's largest launches and the other "
-               "instances"):
+    with Stage("kernel timing at both routes' launches at 32k and the other instances"):
         sms = props.multi_processor_count
-        kernels = [kernel_entry(name, *captured[name], launches=launches[name],
-                                max_err=max_err[name], sms=sms, sm_mhz=sm_mhz)
+        # the split route's largest launches, then the mono route's (the main path's)
+        kernels = [kernel_entry(name, *captured_split[name], launches=launches_split[name],
+                                max_err=split_err[name], sms=sms, sm_mhz=sm_mhz)
                    for name in ("phase1", "phase2")]
+        kernels += [kernel_entry(name, *captured[name], launches=launches[name],
+                                 max_err=max_err[name], sms=sms, sm_mhz=sm_mhz, tag="_mono")
+                    for name in ("phase1", "phase2")]
         # the capacity and general instances, off the main paths, on the
         # mixed-length batch
         for w in OFF_PATH_WIDTHS:
@@ -1012,6 +1138,11 @@ def main() -> int:
                 return fail("CLI output differs from the engine's records")
             log(f"  CLI OVL equal ({Path(out).stat().st_size} bytes)")
             cli_phase(fasta, tmp)
+
+    # ---- 5c. the AMOS pipeline driver on stand-in binaries ----
+    with Stage("AMOS pipeline driver: device engine on the card, stand-in AMOS binaries"):
+        with tempfile.TemporaryDirectory() as tmp:
+            pipeline_phase(dev, s, uni, engine_out["100 bp"], tmp)
 
     # ---- 6. the large-input path at full size ----
     with Stage("large-input path: 1,000,000 x 100 bp, k = 16, run_arrays and "

@@ -15,8 +15,10 @@ the full Smith-Waterman, ``--linear-align`` the two-phase banded dovetail.
 ``--engine sharded`` runs the sharded engine (``parallel.shard``) as one
 rank on ``--device``, as the JAX CLI runs it over the local devices; its
 multi-process form is ``python -m sequence_aligner_tpu_torch.dist.worker``.
-One mode of the JAX CLI is not ported and is refused: ``--pipeline`` (it
-drives the external AMOS binaries).
+``--pipeline`` runs the AMOS assembly (``pipeline.driver``) in
+``--workdir`` with the ``--engine`` as its overlap stage (``--engine amos``:
+AMOS ``hash-overlap``); its binaries are read from ``pipeline.datasets.AMOS_BIN``,
+and where they are missing it fails as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ Modes (default --calc-overlaps):
   --test-dispatch-collisions --test-block-dispatch --test-kmer-cover
   --test-fasta-read --bench-fasta-read --bench-kmer-gen
   --bench-kmer-analysis --bench-align-quick --bench-align
-  (--pipeline is not ported)
+  --pipeline (full AMOS assembly: bank->overlap->transact->tigger->
+              consensus->fasta, like rake pipeline:project)
 
 Alignment options:
   -m|--matrix|-H|--HOXD-matrix FILE   HOXD matrix file
@@ -54,7 +57,8 @@ Alignment options:
 Engine options:
   --st-hash/--mt-hash --st-align/--mt-align --block-align/--single-align
   --quadratic-align/--linear-align
-  --engine device|oracle|sharded    --batch-size N (1048576)
+  --engine device|oracle|sharded (--pipeline: also amos)
+  --batch-size N (1048576)   --workdir DIR (/tmp/seqalign_pipe)
   --prescreen / --no-prescreen  diagonal-coherence candidate prescreen
                        (device engine; empirically lossless, off by default)
   --device cuda|cpu    (cuda)
@@ -66,7 +70,7 @@ MODES = {
     "--calc-overlaps", "--test-overlaps", "--test-alignment",
     "--test-dispatch-collisions", "--test-block-dispatch", "--test-kmer-cover",
     "--test-fasta-read", "--bench-fasta-read", "--bench-kmer-gen",
-    "--bench-kmer-analysis", "--bench-align-quick", "--bench-align",
+    "--bench-kmer-analysis", "--bench-align-quick", "--bench-align", "--pipeline",
 }
 
 
@@ -97,6 +101,7 @@ class Options:
         self.prescreen = False
         self.debug = False
         self.profile_dir = ""
+        self.workdir = "/tmp/seqalign_pipe"
 
     def settings(self) -> AlignSettings:
         if self.hoxd:
@@ -124,7 +129,7 @@ def _fail(msg: str):
 
 
 def _engine(v: str) -> str:
-    if v not in ("device", "oracle", "sharded"):
+    if v not in ("device", "oracle", "sharded", "amos"):
         raise ValueError(v)
     return v
 
@@ -151,6 +156,7 @@ _TAKES = {
     "--device": ("device", str),
     "--engine": ("engine", _engine),
     "--profile": ("profile_dir", str),
+    "--workdir": ("workdir", str),
     "--match": ("match", lambda v: abs(int(v))),
     "--mismatch": ("mismatch", lambda v: -abs(int(v))),
 }
@@ -202,13 +208,12 @@ def parse_args(argv: list[str]) -> Options:
         elif a in MODES:
             o.action = a[2:]
             i += 1
-        elif a == "--pipeline":
-            _fail("--pipeline is not ported to sequence_aligner_tpu_torch (it drives the "
-                  "external AMOS binaries); run it with sequence_aligner_tpu.cli")
         else:
             _fail(f"Invalid argument : {a}")
     if o.input == "":
         _fail("No input file specified")
+    if o.engine == "amos" and o.action != "pipeline":
+        _fail("--engine amos (AMOS hash-overlap) runs only with --pipeline")
     return o
 
 
@@ -448,6 +453,14 @@ def main(argv: list[str] | None = None) -> int:
             n = _calc_overlaps(o, s)
         if o.debug:
             print(f"# wrote {n} overlaps", file=sys.stderr)
+    elif act == "pipeline":
+        from sequence_aligner_tpu_torch.pipeline.driver import run_amos_pipeline
+
+        res = run_amos_pipeline(o.input, s, o.workdir, overlapper=o.engine, device=o.device)
+        print("============ Time Taken =============")
+        for k, v in res.timings.items():
+            print(f"  {k:<10}: {v:8.3f}s")
+        print(f"contigs: {res.n_contigs} lengths: {[len(c.seq) for c in res.contigs]}")
     elif act == "test-fasta-read":
         # the first 10 reads (src/Project4.scala:272-285)
         print()

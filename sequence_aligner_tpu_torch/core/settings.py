@@ -24,6 +24,7 @@ import numpy as np
 # 2-bit base encoding, matching the reference k-mer hash packing
 # (src/ObjectStore.scala:56-59): A=00, C=01, T=10, G=11.
 BASE_CODE = {"A": 0, "C": 1, "T": 2, "G": 3}
+CODE_BASE = "ACTG"
 
 # HOXD70 substitution scores (src/BioLibs.scala:119-161), laid out in the
 # A,C,T,G base-code order.
@@ -104,6 +105,18 @@ class AlignSettings:
             self.kmer_size,
             int(math.floor(float(np.float32(len_a) * frac))) + 1,
         )
+
+    def band_widths(self, len_a: np.ndarray) -> np.ndarray:
+        """``band_width`` over an int array of lead lengths, int32."""
+        frac = np.float32(np.float32(1.0) - np.float32(self.min_identity))
+        w = np.floor(
+            (len_a.astype(np.float32) * frac).astype(np.float64)
+        ).astype(np.int32) + 1
+        return np.maximum(w, np.int32(self.kmer_size))
+
+    def score(self, a: str, b: str) -> int:
+        """The substitution score of two bases given as characters."""
+        return int(self.cost_matrix[BASE_CODE[a.upper()], BASE_CODE[b.upper()]])
 
     def cm_tuple(self) -> tuple[int, ...]:
         """The cost matrix as 16 Python ints, row-major (a * 4 + b)."""

@@ -1,1 +1,1 @@
-"""FASTA reading and OVL writing (host)."""
+"""FASTA reading, OVL writing and parsing, and AMOS messages (host)."""

@@ -5,11 +5,25 @@ The reference's production call stack (src/Project4.scala:56-59: k-mer table
 one device:
 
   encode (host) -> kmer_scan -> hash sort + exact capacity plan ->
-  candidate_pairs_stream -> per band width: phase 1 on every pair (most
-  candidates dud there and stop) -> dove-length histogram and tiers ->
-  phase 2 on the pairs that can still be valid, one tier at a time, each
-  launch looping at most the tier's top dove length in rows -> validity ->
-  canonical (lead, trail) order.
+  candidate_pairs_stream -> per band width, one of two routes -> validity
+  -> canonical (lead, trail) order.
+
+The two align routes are the JAX engine's, chosen by its rule for each
+band-width group of ``cnt`` pairs: the both-phase ("mono") route when
+``cnt <= 2^21`` (``SEQALIGN_ALIGN_MONO=1`` forces it up to 2^25 pairs,
+``=0`` forces the split route), else the split route.
+
+  mono   one phase-1 launch over the whole group, the dove anchor
+         (``dovetail_glue``), one phase-2 launch over every pair, duds
+         included, at the group's full rows.
+  split  phase 1 on every pair (most candidates dud there and stop) ->
+         dove-length histogram and tiers (planned unless
+         ``SEQALIGN_ADAPTIVE_TIERS=0``) -> phase 2 on the pairs that can
+         still be valid, one tier at a time, each launch looping at most
+         the tier's top dove length in rows.
+
+Both give the same records; ``OverlapStats`` counts what each loops over,
+as the JAX engine counts it.
 
 Pair generation keys pairs as one int64 for any read id.  The JAX engine
 picks its packed 16-bit-id pair path when the read count's padded tier (the
@@ -19,10 +33,8 @@ opt-in prescreen does, and the port computes the same tier to activate the
 screen exactly where the JAX engine does (packed ids, one read length,
 ``prescreen=True``).
 
-The JAX engine also has a monolithic both-phase path it picks for small
-inputs on the TPU; both give the same records, so the port keeps only the
-split path.  The pair table, the per-pair dove lengths and the alignment
-results stay on the device until the valid records are fetched once.
+The pair table, the per-pair dove lengths and the alignment results stay
+on the device until the valid records are fetched once.
 
 ``fast_dovetail=False`` aligns every candidate with the quadratic full
 Smith-Waterman of ``ops.align_lax`` instead (the reference's
@@ -40,6 +52,7 @@ import bisect
 import contextlib
 import dataclasses
 import math
+import os
 import time
 import warnings
 
@@ -53,8 +66,8 @@ from sequence_aligner_tpu_torch.native import (
     fasta_encode_chunks_native, fasta_encode_native, fasta_scan_native,
 )
 from sequence_aligner_tpu_torch.ops.align_fused import (
-    check_pair_indices, fast_dovetail_batch, pack_reads_le, phase1_indexed, phase2_indexed,
-    phase2_results,
+    check_pair_indices, dovetail_glue, fast_dovetail_batch, pack_reads_le, phase1_indexed,
+    phase2_indexed, phase2_results,
 )
 from sequence_aligner_tpu_torch.ops.align_lax import OUT_KEYS, local_align_batch
 from sequence_aligner_tpu_torch.ops.encode import encode_reads
@@ -68,6 +81,9 @@ from sequence_aligner_tpu_torch.utils.profiling import device_memory_stats
 # Per-class raw-stream ceiling for one device (the JAX engine's bound; its
 # int64 keys alone would be 16 GB here).
 _MAX_STREAM = (2**31 - 1) * 8 // 9
+# the JAX engine's route rule for a band-width group of cnt pairs: the
+# both-phase route at or below MONO_AUTO pairs, never above MONO_MAX
+MONO_AUTO, MONO_MAX = 1 << 21, 1 << 25
 # bytes of int8 traceback codes one chunk of the quadratic path may hold:
 # (la_max + 1)^2 a pair, 10,201 at 100 bp, so a 2^20-pair batch would
 # need 10.7 GB
@@ -187,16 +203,19 @@ class Overlapper:
     ``fast_dovetail=False`` takes the quadratic full Smith-Waterman in
     place of the two-phase banded dovetail aligner.  ``prescreen=True``
     turns on the diagonal-coherence candidate prescreen (``ops.pairgen``;
-    empirically lossless, off by default, as in the JAX engine)."""
+    empirically lossless, off by default, as in the JAX engine); None
+    reads ``SEQALIGN_PRESCREEN`` (0 or 1), as the JAX engine does."""
 
     def __init__(self, settings: AlignSettings, *, fast_dovetail: bool = True,
-                 batch_size: int = 1 << 20, prescreen: bool = False,
+                 batch_size: int = 1 << 20, prescreen: bool | None = None,
                  device: str | torch.device = "cuda"):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.s = settings
         self.fast_dovetail = fast_dovetail
         self.batch_size = batch_size
+        if prescreen is None:
+            prescreen = bool(int(os.environ.get("SEQALIGN_PRESCREEN", "0")))
         self.prescreen = prescreen
         self.device = resolve_device(device)
         self.stats = OverlapStats()
@@ -245,7 +264,8 @@ class Overlapper:
         one read length, ``prescreen=True``), else None.  Two collisions on
         one valid alignment's path differ in diagonal by at most its indel
         count <= floor((1 - min_identity) * align_len), align_len <=
-        la + w + 2 (the JAX engine's window, min_identity as float32)."""
+        la + w + 2 (the JAX engine's window, min_identity as float32);
+        ``SEQALIGN_PRESCREEN_W`` overrides it, as in the JAX engine."""
         s = self.s
         if not (self.prescreen and self._packed_ids and self._uniform_den):
             return None
@@ -263,7 +283,7 @@ class Overlapper:
                 "record-level parity.",
                 stacklevel=3,
             )
-        return max(tight, 1)
+        return int(os.environ.get("SEQALIGN_PRESCREEN_W", max(tight, 1)))
 
     def _candidates_dev(self, occ):
         """The pair stream with capacities planned from the exact raw
@@ -298,7 +318,7 @@ class Overlapper:
             )
         return out, out["n_out"]
 
-    # ---- stage 4: split-phase alignment per band width ----
+    # ---- stage 4: alignment per band width, on the mono or the split route ----
     def _align_device(self, bases_d: torch.Tensor, lengths: np.ndarray,
                       lead_d: torch.Tensor, trail_d: torch.Tensor, n_pairs: int):
         """(lead, trail, ahg, bhg) host int32 arrays of the VALID overlaps
@@ -317,7 +337,7 @@ class Overlapper:
             return self._fetch_valid(found, n_pairs)
         packed = pack_reads_le(bases_d)
         la_max = bases_d.shape[1]
-        wtab_host = np.asarray([s.band_width(l) for l in range(la_max + 1)], np.int32)
+        wtab_host = s.band_widths(np.arange(la_max + 1, dtype=np.int32))
         widths = sorted(set(int(w) for w in wtab_host[lengths[lengths > 0]]))
         cm = s.cm_tuple()
         real = lengths[lengths > 0]
@@ -346,8 +366,18 @@ class Overlapper:
             cnt = int(sel.numel())
             if cnt == 0:
                 continue
-            bs = self._batch(cnt)
             a_w, b_w = a_all[sel], b_all[sel]
+            mono_env = os.environ.get("SEQALIGN_ALIGN_MONO")
+            mono = bool(int(mono_env)) if mono_env is not None else cnt <= MONO_AUTO
+            if mono and cnt <= MONO_MAX:
+                found.append(self._align_mono(packed, lengths_d, a_w, b_w, w, rows_w[w],
+                                              p1kw, vkw))
+                cells = 2 * cnt * (la_max + 1) * (w + 1)
+                self.stats.dp_cells += cells
+                self.stats.dp_cells_raw += cells
+                self.stats.n_phase2_pairs += cnt
+                continue
+            bs = self._batch(cnt)
             # pass A: phase 1 on every pair; dove length, -1 for duds
             dlen = torch.empty(cnt, dtype=torch.int32, device=dev)
             for lo in range(0, cnt, bs):
@@ -368,7 +398,7 @@ class Overlapper:
             lo0 = tiers[0][0]
             hist = torch.bincount(dlen.clamp(-1, la_max).long() + 1,
                                   minlength=la_max + 2).cpu().numpy()
-            if len(tiers) > 1:
+            if len(tiers) > 1 and bool(int(os.environ.get("SEQALIGN_ADAPTIVE_TIERS", "1"))):
                 tiers = _plan_tiers(hist, lo0, la_max, batch=bs)
             # one stable sort groups every tier into a contiguous slice
             key = torch.where(dlen > lo0, dlen, 1 << 30)
@@ -393,6 +423,26 @@ class Overlapper:
                         [a_idx + 1, b_idx + 1, ahg, bhg], dim=1)[valid])
                 toff += tcnt
         return self._fetch_valid(found, n_pairs)
+
+    @staticmethod
+    def _align_mono(packed, lengths_d, a_w, b_w, w: int, rows: int, p1kw: dict, vkw: dict):
+        """The both-phase route on one band-width group (the JAX engine's
+        ``_align_chunk_compact``): one phase-1 launch over every pair, the
+        dove anchor, one phase-2 launch over every pair, duds included, at
+        ``rows`` rows.  Launches take the group whole, whatever the batch
+        size (the JAX engine's launch is the group rounded up to its
+        capacity tier, padding a compiled program needs and a CUDA launch
+        does not).  Returns the valid (lead, trail, ahg, bhg) rows."""
+        p1 = phase1_indexed(packed, a_w, b_w, lengths_d, la_max=rows, w=w, **p1kw)
+
+        def run_phase2(dove_start, dove_len):
+            return phase2_indexed(packed, a_w, b_w, dove_start.contiguous(),
+                                  dove_len.contiguous(), lengths_d, la_max=rows, w=w,
+                                  zero_row=w // 2, **p1kw)
+
+        res = dovetail_glue(p1, run_phase2, lengths_d[a_w.long()], lengths_d[b_w.long()],
+                            width=w, **vkw)
+        return torch.stack([a_w + 1, b_w + 1, res["ahg"], res["bhg"]], dim=1)[res["valid"]]
 
     def _fetch_valid(self, found: list[torch.Tensor], n_pairs: int):
         """The valid [n, 4] rows of every launch -> four host int32 arrays."""
@@ -471,7 +521,7 @@ class Overlapper:
             for lo, a, _, res in self._quadratic_chunks(bases_d, lengths_d, a_idx, b_idx):
                 put(slice(lo, lo + a.numel()), res)
             return out
-        widths = np.asarray([s.band_width(int(l)) for l in np.asarray(lengths)[a_h]])
+        widths = s.band_widths(np.asarray(lengths)[a_h])
         for w in np.unique(widths).tolist():
             sel = np.flatnonzero(widths == w)
             sel_d = torch.from_numpy(sel).to(dev)
@@ -485,8 +535,17 @@ class Overlapper:
 
     # ---- full pipeline ----
     def run(self, path_or_seqs: str | list[Sequence]) -> list[OverlapRecord]:
-        """Full pipeline to OverlapRecord objects."""
-        return [OverlapRecord(*map(int, r)) for r in zip(*self.run_arrays(path_or_seqs))]
+        """Full pipeline to OverlapRecord objects (``run_arrays`` is the
+        array surface, which builds no per-record objects)."""
+        return self._to_records(self.run_arrays(path_or_seqs))
+
+    def run_stream(self, path: str, *, chunk_reads: int = 1 << 15) -> list[OverlapRecord]:
+        """Streamed variant of ``run``: ``run_stream_arrays`` as records."""
+        return self._to_records(self.run_stream_arrays(path, chunk_reads=chunk_reads))
+
+    def _to_records(self, arrs) -> list[OverlapRecord]:
+        with self._stage("emit.records"):
+            return OverlapRecord.bulk_build(*(c.tolist() for c in arrs))
 
     def run_arrays(self, path_or_seqs: str | list[Sequence]):
         """Full pipeline to canonical (lead, trail, ahg, bhg) int32 numpy

@@ -1,1 +1,1 @@
-"""Simulated read sets."""
+"""Dataset paths, simulated read sets and the AMOS assembly pipeline."""

@@ -1,17 +1,36 @@
-"""Simulated read sets (copied from ``sequence_aligner_tpu/pipeline``).
+"""Dataset paths and read sets (copied from ``sequence_aligner_tpu/pipeline``).
 
 ``simulated_reads`` draws a random genome sized for the requested coverage
 and shreds it into an even tiling of reads; with the same seed it gives the
 same reads as the JAX package (both draw from ``np.random.RandomState``).
 ``planted_repeat_reads`` (the port's own) does the same on a genome with
 many copies of short planted k-mers, where the prescreen has work to do.
+``c_ruddii_reads`` shreds the reference's single-contig c_ruddii genome
+(159,659 bp) into the c_ruddii benchmark's 32,000 x 100 bp reads.
+
+The paths name the reference implementation's data: the crp177 golden
+fixtures, the c_ruddii genome and the AMOS binaries.  They lie under
+``REFERENCE``: ``$SEQALIGN_REFERENCE`` if set, else ``reference/`` at the
+root of the checkout, which does not hold them yet.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
 
 from sequence_aligner_tpu_torch.core.records import Sequence
+from sequence_aligner_tpu_torch.io.fasta import read_fasta
+
+REFERENCE = os.environ.get("SEQALIGN_REFERENCE",
+                           str(Path(__file__).resolve().parents[2] / "reference"))
+CRP_SEQ = f"{REFERENCE}/amos/small/crp177.seq"
+CRP_OVL = f"{REFERENCE}/amos/small/crp177.ovl"
+CRP_FASTA = f"{REFERENCE}/amos/small/crp177.fasta"
+C_RUDDII_FASTA = f"{REFERENCE}/amos/c_ruddii.fasta"
+AMOS_BIN = f"{REFERENCE}/bin"
 
 _BASES = "ACTG"
 
@@ -44,6 +63,20 @@ def shred_genome(
             body = "".join(arr)
         seqs.append(Sequence(i + 1, body))
     return seqs
+
+
+def load_genome(path: str | None = None) -> str:
+    """The bases of every record of a FASTA file, joined (default
+    ``C_RUDDII_FASTA``)."""
+    return "".join(r.seq for r in read_fasta(path or C_RUDDII_FASTA))
+
+
+def c_ruddii_reads(n_reads: int = 32000, read_len: int = 100, *,
+                   genome: str | None = None, **kw) -> list[Sequence]:
+    """The c_ruddii-scale dataset: the genome at ``genome`` (default
+    ``C_RUDDII_FASTA``) shredded into n_reads reads of read_len bp (the
+    golden bank's RED object count); ``kw`` goes to ``shred_genome``."""
+    return shred_genome(load_genome(genome), n_reads, read_len, **kw)
 
 
 def simulated_reads(

@@ -3,8 +3,10 @@ calc-overlaps CLI of ``sequence_aligner_tpu_torch`` (device="cpu", the
 kernels' plain versions) against the JAX engine — equal canonical
 (lead, trail, ahg, bhg) arrays and byte-identical OVL text."""
 
+import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import jax  # noqa: F401  (JAX stays on the CPU, as tests/conftest.py forces)
@@ -135,10 +137,24 @@ def test_cli_writes_the_jax_cli_output(tmp_path):
 
 
 def test_cli_refuses_modes_not_ported(tmp_path):
-    with pytest.raises(SystemExit):
-        cli_main(["-i", "x.fasta", "--pipeline"])
+    """No input is refused; ``--pipeline`` without the AMOS binaries exits
+    as the JAX CLI's does, on the missing ``toAmos_new``."""
     with pytest.raises(SystemExit):
         cli_main(["--device", "cpu"])  # no input
+    fasta = tmp_path / "reads.fasta"
+    write_seq([Sequence(q.id, q.seq) for q in j_sim(20, 100, coverage=8.0, seed=1)], str(fasta))
+    env = dict(os.environ, SEQALIGN_REFERENCE=str(tmp_path / "absent"))
+    for mod, extra in (("sequence_aligner_tpu.cli", []),
+                       ("sequence_aligner_tpu_torch.cli", ["--device", "cpu"])):
+        r = subprocess.run(
+            [sys.executable, "-m", mod, "-i", str(fasta), "--pipeline", "--workdir",
+             str(tmp_path / mod), *extra],
+            cwd=Path(__file__).resolve().parents[1], env=env, capture_output=True, text=True,
+            timeout=300,
+        )
+        last = r.stderr.strip().splitlines()[-1]
+        assert r.returncode == 1 and r.stdout == "", (mod, r.stdout, r.stderr[-2000:])
+        assert last.startswith("FileNotFoundError") and "toAmos_new" in last, (mod, last)
 
 
 def test_run_arrays_takes_65536_reads_on_the_general_path():

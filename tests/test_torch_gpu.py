@@ -188,6 +188,59 @@ def test_engine_on_the_card_equals_the_cpu(cuda):
         assert np.array_equal(g, w)
 
 
+@pytest.mark.parametrize("w", [12, 16])
+def test_phase2_on_pure_duds_equals_its_plain_version(cuda, w):
+    """The mono route hands phase 2 every pair, duds included: dove length
+    0 (the dove start at |A|), dove starts anywhere in A, and B shorter
+    than the band."""
+    rng = np.random.RandomState(w)
+    seqs = simulated_reads(1024, 100, coverage=20.0, error_rate=0.01, seed=w)
+    seqs = [Sequence(q.id, q.seq if q.id % 2 else q.seq[: 1 + q.id % (w - 1)]) for q in seqs]
+    bases, lengths = encode_reads(seqs)
+    packed = af.pack_reads_le(torch.from_numpy(bases).to(cuda))
+    ln = torch.from_numpy(lengths).to(cuda)
+    ia = torch.from_numpy(2 * rng.randint(0, 512, 8192)).int().to(cuda)  # 100 bp
+    ib = torch.from_numpy(np.where(rng.rand(8192) < 0.75, 2 * rng.randint(0, 512, 8192) + 1,
+                                   2 * rng.randint(0, 512, 8192))).int().to(cuda)
+    a_len = ln[ia.long()]
+    assert (ln[ib.long()] < w).float().mean() > 0.7
+    kw = dict(la_max=100, w=w, zero_row=w // 2, gO=S.gap_open, gE=S.gap_extend, cm_tuple=CM)
+    for ds in (a_len, torch.from_numpy(rng.randint(0, 101, 8192)).int().to(cuda) % (a_len + 1)):
+        ds = ds.contiguous()
+        dl = (a_len - ds).contiguous()
+        k2 = af.phase2_indexed(packed, ia, ib, ds, dl, ln, **kw)
+        torch.cuda.synchronize()
+        _assert_equal(k2, af.phase2_indexed_plain(packed, ia, ib, ds, dl, ln, **kw), "duds")
+
+
+@pytest.mark.parametrize("what", ["one_width", "two_widths"])
+def test_mono_route_on_the_card_equals_the_split_route_and_the_cpu(cuda, what, monkeypatch):
+    """Below 2^21 pairs a width group takes the mono route, one launch of
+    each kernel; its records equal the split route's
+    (``SEQALIGN_ALIGN_MONO=0``) and the CPU path's."""
+    if what == "one_width":
+        s, seqs = S, simulated_reads(2048, 100, coverage=20.0, error_rate=0.01, seed=13)
+    else:
+        s, seqs = AlignSettings.amos_parity(kmer_size=8, min_identity=0.9, max_ignore=200), \
+            _mixed_width_reads()
+    n_widths = len({s.band_width(len(q.seq)) for q in seqs})
+    assert n_widths == (1 if what == "one_width" else 2)
+    monkeypatch.delenv("SEQALIGN_ALIGN_MONO", raising=False)
+    af.phase1_launches = af.phase2_launches = 0
+    ov = Overlapper(s, device=cuda)
+    mono = ov.run_arrays(seqs)
+    assert (af.phase1_launches, af.phase2_launches) == (n_widths, n_widths)
+    assert ov.stats.n_phase2_pairs == ov.stats.n_candidate_pairs
+    cpu = Overlapper(s, device="cpu").run_arrays(seqs)
+    monkeypatch.setenv("SEQALIGN_ALIGN_MONO", "0")
+    split_ov = Overlapper(s, device=cuda)
+    split = split_ov.run_arrays(seqs)
+    assert split_ov.stats.n_phase2_pairs < ov.stats.n_phase2_pairs
+    assert len(mono[0]) > 0
+    for m, sp, c in zip(mono, split, cpu):
+        assert np.array_equal(m, sp) and np.array_equal(m, c)
+
+
 @pytest.mark.parametrize("p", [1024, 1000])  # one ragged block
 @pytest.mark.parametrize("variant", pp.VARIANTS)
 def test_pack_probe_kernels_equal_plain_versions(cuda, variant, p):

@@ -19,6 +19,7 @@ from sequence_aligner_tpu_torch.device import resolve_device
 from sequence_aligner_tpu_torch.dist import worker
 from sequence_aligner_tpu_torch.models.overlapper import Overlapper
 from sequence_aligner_tpu_torch.parallel.shard import sharded_overlap
+from sequence_aligner_tpu_torch.pipeline.driver import run_amos_pipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "sequence_aligner_tpu_torch"
@@ -88,6 +89,10 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch, tmp_path):
         sharded_overlap([Sequence(1, "ACGTACGTACGTACGT")], AlignSettings())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         worker.main(["-i", str(fasta), "-o", str(tmp_path / "o.ovl")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_amos_pipeline(str(fasta), AlignSettings(), str(tmp_path / "pipe"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["-i", str(fasta), "--pipeline", "--workdir", str(tmp_path / "pipe")])
     assert not torch.distributed.is_initialized()  # no group was left behind
     assert resolve_device("cpu").type == "cpu"
     assert np.array_equal(

@@ -194,6 +194,16 @@ def test_cli_sleep_for_debug(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("args,names", [(["--pipeline"], "--pipeline")])
-def test_cli_refuses_what_is_not_ported(files, args, names, capsys):
-    rc, out, err = _run(p_main, ["-i", files["reads"], *args, "--device", "cpu"], capsys)
-    assert rc == 1 and out == "" and names in err and "not ported" in err
+def test_cli_refuses_what_is_not_ported(files, args, names, monkeypatch):
+    """No mode is refused any longer: ``names`` without the AMOS binaries
+    raises in both CLIs alike, on the missing ``toAmos_new``."""
+    from sequence_aligner_tpu.pipeline import driver as j_driver
+    from sequence_aligner_tpu_torch.pipeline import driver as p_driver
+
+    absent = str(files["dir"] / "no_amos_bin")
+    for drv in (j_driver, p_driver):
+        monkeypatch.setitem(drv.run_amos_pipeline.__kwdefaults__, "amos_bin", absent)
+    for main, extra in ((j_main, []), (p_main, ["--device", "cpu"])):
+        with pytest.raises(FileNotFoundError, match=f"{absent}/toAmos_new"):
+            main(["-i", files["reads"], *args, "--workdir", str(files["dir"] / names[2:]),
+                  *extra])
