@@ -756,7 +756,11 @@ def quadratic_phase(dev, s, reads, banded_records: int, sms: int, sm_mhz: float)
     check_records(arrs, len(reads), s)
     st = ov.stats
     n = st.n_candidate_pairs
-    cells = st.dp_cells  # (la_max + 1)^2 a pair
+    if st.dp_cells != 0 or st.dp_cells_raw != 0:  # the JAX engine counts no quadratic cells
+        raise AssertionError(f"quadratic path: dp_cells {st.dp_cells}, dp_cells_raw "
+                             f"{st.dp_cells_raw}; the JAX engine counts 0")
+    la_max = max(len(r.seq) for r in reads)
+    cells = n * (la_max + 1) ** 2  # the full (la_max + 1)^2 matrix a pair
     # each pair's two reads, two lengths and two ids in, four words out
     nbytes = n * (2 * READ_LEN + 4 * 4 + 4 * 4)
     bound, by = bound_ms(cells * QUAD_OPS_PER_CELL, nbytes, sms, sm_mhz)

@@ -113,7 +113,7 @@ class OverlapStats:
     n_valid: int = 0
     # pairs that reach phase 2, the DP cells the launches loop over
     # (dp_cells) and the two-full-band volume (dp_cells_raw) — the JAX
-    # engine's definitions
+    # engine's definitions, so the quadratic path counts none of either
     n_phase2_pairs: int = 0
     dp_cells: int = 0
     dp_cells_raw: int = 0
@@ -467,12 +467,12 @@ class Overlapper:
     def _quadratic_chunks(self, bases_d, lengths_d, a_idx, b_idx):
         """Full Smith-Waterman of pairs (a_idx[p], b_idx[p]) (0-based rows of
         the read matrix), chunk by chunk; yields (first pair, a rows, b rows,
-        result dict) per chunk."""
+        result dict) per chunk.  Counts no ``dp_cells``, as the JAX engine's
+        quadratic branch counts none."""
         s = self.s
         la_max = bases_d.shape[1]
         n = a_idx.numel()
         bs = self.quad_chunk(n, la_max)
-        self.stats.dp_cells += n * (la_max + 1) ** 2
         for lo in range(0, n, bs):
             a, b = a_idx[lo : lo + bs].long(), b_idx[lo : lo + bs].long()
             yield lo, a, b, local_align_batch(

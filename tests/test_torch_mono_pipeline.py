@@ -36,7 +36,7 @@ from sequence_aligner_tpu_torch.core.settings import AlignSettings, settings_fro
 from sequence_aligner_tpu_torch.io import amos
 from sequence_aligner_tpu_torch.io import ovl
 from sequence_aligner_tpu_torch.models.overlapper import Overlapper
-from sequence_aligner_tpu_torch.ops import encode
+from sequence_aligner_tpu_torch.ops import align_lax, encode
 from sequence_aligner_tpu_torch.pipeline import datasets, driver
 from sequence_aligner_tpu_torch.pipeline.datasets import planted_repeat_reads, write_seq
 from sequence_aligner_tpu_torch.pipeline.standins import write_standins
@@ -112,6 +112,36 @@ def test_stats_and_records_equal_the_jax_engine(kind, route, monkeypatch):
     if (kind, route) == ("sim600", "default"):
         assert (want["dp_cells"], want["n_phase2_pairs"]) == (7_804_472, 2_972)
         assert want["n_valid"] == 2_055
+
+
+@pytest.mark.parametrize("entry", ["run_arrays", "run_stream_arrays"])
+def test_quadratic_stats_and_records_equal_the_jax_engine(entry, tmp_path):
+    """The quadratic path (``fast_dovetail=False``): every JAX field of
+    ``OverlapStats``, ``dp_cells`` and ``dp_cells_raw`` included (0: the JAX
+    engine counts no quadratic cells), and the records equal the JAX
+    engine's, over several chunks: 128-pair align chunks for ``run_arrays``,
+    64-read file chunks for ``run_stream_arrays``."""
+    seqs = j_sim(120, 100, coverage=20.0, error_rate=0.02, seed=5)
+    js = JSettings()
+    if entry == "run_arrays":
+        jov = JOverlapper(js, fast_dovetail=False, batch_size=1)
+        ov = Overlapper(settings_from_jax(js), fast_dovetail=False, batch_size=1, device="cpu")
+        calls0 = align_lax.calls
+        want, got = jov.run_arrays(seqs), ov.run_arrays(_port(seqs))
+        assert align_lax.calls - calls0 == -(-ov.stats.n_candidate_pairs // 128) > 1
+    else:
+        path = str(tmp_path / "r.fasta")
+        write_seq(_port(seqs), path)
+        jov = JOverlapper(js, fast_dovetail=False)
+        ov = Overlapper(settings_from_jax(js), fast_dovetail=False, device="cpu")
+        want = jov.run_stream_arrays(path, chunk_reads=64)
+        got = ov.run_stream_arrays(path, chunk_reads=64)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and np.array_equal(g, np.asarray(w))
+    stats = dataclasses.asdict(jov.stats)
+    assert {k: getattr(ov.stats, k) for k in JAX_STATS} == stats
+    assert stats["dp_cells"] == stats["dp_cells_raw"] == 0
+    assert stats["n_candidate_pairs"] == 1_430 and stats["n_valid"] > 0
 
 
 def test_static_tiers_loop_more_cells_than_planned_tiers(monkeypatch):
